@@ -16,7 +16,17 @@ Phases, each printing one JSON line:
               version;
   4. parity   a small float32 model gives the same proposals and poses on
               the card as on the CPU;
-  5. kernels  each kernel at the main path's shapes and sample points (with
+  5. train    three SSV train steps (after one warm-up step) of the same
+              flagship config at batch 1, every candidate kept valid
+              (THRESHOLD = -100), Adam, three synthetic augmentation
+              branches: six finite loss terms, every kernel's launch count
+              per step, parameters and BatchNorm statistics that moved;
+  6. train_parity  the train-stage losses and their gradients of a small
+              float32 model on the card against the CPU, same weights and
+              injected synthetic-root draws: with BatchNorm on its running
+              statistics the losses and every parameter's gradient are
+              held, with batch statistics the losses;
+  7. kernels  each kernel at its main path's shapes and sample points (with
               seeded uniform heatmaps), held against its plain version,
               timed beside it, beside its bound, and beside one PyTorch
               library call where one computes the same function.
@@ -27,6 +37,7 @@ exits non-zero without one.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -41,6 +52,8 @@ sys.path.insert(0, ROOT)
 from selfpose3d_tpu_torch.config import flagship_cfg, load_config  # noqa: E402
 from selfpose3d_tpu_torch.data.synthetic import make_synthetic_branch  # noqa: E402
 from selfpose3d_tpu_torch.models import get_model  # noqa: E402
+from selfpose3d_tpu_torch.models.multi_person import cat_branches  # noqa: E402
+from selfpose3d_tpu_torch.train import create_train_state, make_ssv_train_step  # noqa: E402
 from selfpose3d_tpu_torch.geometry.grid import compute_grid  # noqa: E402
 from selfpose3d_tpu_torch.ops import build, slicewarp  # noqa: E402
 from selfpose3d_tpu_torch.ops.unproject import compute_sample_grid, to_pixels  # noqa: E402
@@ -48,6 +61,7 @@ from selfpose3d_tpu_torch.ops.unproject import compute_sample_grid, to_pixels  #
 # H100 SXM published peaks (HBM3 bandwidth, dense FP32 rate)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 SOURCE = "selfpose3d_tpu_torch/csrc/slicewarp.cu"
 
 
@@ -71,6 +85,37 @@ def small_cfg():
         "PICT_STRUCT": {"CUBE_SIZE": [16, 16, 16]},
         "DATASET": {"ROOTIDX": 2, "CAMERA_NUM": 3},
     })
+
+
+def small_train_cfg():
+    """``small_cfg`` with every SSV loss term on: attention net, L1 stage,
+    synthetic-root training, a trainable backbone."""
+    cfg = small_cfg()
+    return dataclasses.replace(
+        cfg, WITH_SSV=True, WITH_ATTN=True, USE_L1=True, L1_ATTN=True,
+        NETWORK=dataclasses.replace(cfg.NETWORK, ROOTNET_TRAIN_SYNTH=True,
+                                    TRAIN_BACKBONE=True, FREEZE_ROOTNET=False),
+    )
+
+
+def train_cfg():
+    """The flagship config with every candidate kept valid at random init
+    (THRESHOLD = -100), so the pose losses are not gated off."""
+    cfg = flagship_cfg()
+    return dataclasses.replace(
+        cfg, MULTI_PERSON=dataclasses.replace(cfg.MULTI_PERSON, THRESHOLD=-100.0))
+
+
+def train_branches(cfg, batch_size, seed, device):
+    """Three augmentation branches of one synthetic scene (rotation 15,
+    -10 and 0 degrees)."""
+    return [make_synthetic_branch(cfg, batch_size=batch_size, num_person=3, seed=seed,
+                                  with_images=True, rot_deg=rot, device=device)[0]
+            for rot in (15.0, -10.0, 0.0)]
+
+
+TERMS = ("loss_2d", "loss_root_syn", "loss_root_reg", "loss_pose3d_ssv", "loss_attn_ssv",
+         "loss_pose3d_l1_ssv")
 
 
 @torch.no_grad()
@@ -108,9 +153,32 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def bound(bytes_moved, flops):
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / F32_FLOPS
+def bound(bytes_moved, flops, peak=F32_FLOPS):
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def queued_kernel_bounds():
+    """Bounds of the TPU kernels not ported yet (measurement probes under
+    scripts/), from the shapes in their sources; nothing runs."""
+    rows = {}
+    # scripts/microbench_pallas_conv.py: k=3^3 SAME conv, bf16, 40 cubes of 64^3
+    for name, (bk, ci, co) in {"front_res_c1_16to32": (40, 16, 32),
+                               "skip_res1_32to32": (40, 32, 32)}.items():
+        vox = bk * 64 ** 3
+        ms, by = bound(2 * (vox * (ci + co) + 27 * ci * co), 2 * 27 * ci * co * vox, BF16_FLOPS)
+        rows[f"pallas_conv3 {name}"] = {"bound_ms": ms, "bound_by": by}
+    # scripts/microbench_sw_variants.py: the per-view sampler at B=4, J=15,
+    # 640 slices of 64x128 (padded) points, float32
+    b, j, pts = 4, 15, 640 * 64 * 128
+    ms, by = bound(4 * (b * j * 256 * 128 + 2 * b * pts + b * pts * j), b * pts * (8 * j + 12))
+    rows["make_kernel (slice-warp forward variants)"] = {"bound_ms": ms, "bound_by": by}
+    # scripts/microbench.py: 200 repetitions of one primitive on one
+    # (256, 128) float32 tile that never leaves on-chip memory: the tile in
+    # and out once, about 3 operations an element and repetition
+    ms, by = bound(4 * 2 * 256 * 128, 200 * 256 * 128 * 3)
+    rows["bench_kernel (primitive x 200 on a 256x128 tile)"] = {"bound_ms": ms, "bound_by": by}
+    emit({"phase": "queued_kernel_bounds", "bounds": rows})
 
 
 def phase_card():
@@ -215,7 +283,147 @@ def phase_parity():
           "proposal_max_abs_err_mm": loc_err, "pose_max_err_mm": pose_err})
 
 
-def phase_kernels(model, br, gc, launches):
+def phase_train():
+    """Three flagship train steps; returns the model, its branches and the
+    kernels' launch counts of one step."""
+    cfg = train_cfg()
+    B = cfg.TRAIN.BATCH_SIZE
+    model = get_model(cfg, device="cuda", seed=0)
+    branches = train_branches(cfg, B, seed=0, device="cuda")
+    state = create_train_state(cfg, model)
+    step = make_ssv_train_step(model, train_posenet_stage=True, use_l1_stage=True)
+    gen = torch.Generator().manual_seed(0)
+    nets = ("backbone", "attn", "root_net", "pose_net")
+    before = {n: [p.detach().clone() for p in getattr(model, n).parameters()] for n in nets}
+    stats_before = {k: v.clone() for k, v in model.named_buffers() if "running_" in k}
+
+    step(state, *branches, generator=gen)  # warm-up: cuDNN algorithm selection
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reps = 3
+    times = []
+    for _ in range(reps):
+        slicewarp.reset_launches()
+        t0 = time.perf_counter()
+        metrics = step(state, *branches, generator=gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(slicewarp.LAUNCHES)
+        # per step: RootNet main 5 + synthetic 5 + PoseNet 5 forward
+        # launches; 5 adjoints (PoseNet only: RootNet's heatmaps are detached)
+        assert launches == {"sample_view": 15, "sample_view_adjoint": 5,
+                            "sample_views_mean": 0}, launches
+    losses = {k: float(v) for k, v in metrics.items()}
+    assert set(TERMS) <= set(losses), sorted(losses)
+    assert all(torch.isfinite(torch.tensor(v)) for v in losses.values()), losses
+    assert losses["loss_pose3d_ssv"] > 0, losses
+    for n in nets:
+        moved = sum(int(not torch.equal(a, b.detach()))
+                    for a, b in zip(before[n], getattr(model, n).parameters()))
+        assert moved > 0.9 * len(before[n]), (n, moved, len(before[n]))
+    moved_stats = sum(int(not torch.equal(stats_before[k], v))
+                      for k, v in model.named_buffers() if "running_" in k)
+    assert moved_stats == len(stats_before), (moved_stats, len(stats_before))
+    assert state.step == reps + 1
+    ms = sum(times) / reps
+    emit({"phase": "train", "config": "flagship cam5, THRESHOLD -100 (ResNet-50 + ResNet-18 "
+          "attention, 5x960x512, 80x80x20, 64^3 x 10 candidates, bf16 compute, f32 parameters)",
+          "batch": B, "optimizer": cfg.TRAIN.OPTIMIZER, "steps_timed": reps,
+          "ms_per_step": round(ms, 3), "ms_each": [round(t, 3) for t in times],
+          "samples_per_s": round(B * 1e3 / ms, 4),
+          "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2 ** 30, 3),
+          "launches_per_step": launches, "losses": losses,
+          "parameters": sum(p.numel() for p in model.parameters()),
+          "bn_buffers_moved": moved_stats})
+    return model, branches, launches
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(a), abs(b), 1e-12)
+
+
+def phase_train_parity():
+    """The train-stage losses and their gradients of the small float32
+    model on the card (kernels, atomics, cuDNN with TF32 off) against the
+    CPU (plain samplers), same weights and injected synthetic-root draws,
+    float32 against float32, in two runs.
+
+    BatchNorm on its running statistics (``bn_eval``; the loss composition
+    and the samplers' adjoint are the train step's): losses rel 1e-4; the
+    gradient of the heatmap-producing layer (backbone.final_layer.weight)
+    within 1e-3 of its largest value, every other parameter's within 1e-2
+    of its own and the median within 1e-3.
+
+    Train-mode BatchNorm: losses rel 1e-4. The gradients' distances are
+    printed and held to nothing: through stacks of batch-statistics
+    BatchNorm two float32 runs differ by percents of a tensor's largest
+    gradient on any device (tests/test_torch_train_step.py)."""
+    cfg = small_train_cfg()
+    B = 2
+    cpu = randomize(get_model(cfg, device="cpu"), seed=3)
+    gpu = get_model(cfg, device="cuda")
+    start = cpu.state_dict()
+    branches = train_branches(cfg, B, seed=1, device="cpu")
+    branches_gpu = [b.to("cuda") for b in branches]
+    g = torch.Generator().manual_seed(5)
+    P, V = cfg.MULTI_PERSON.MAX_PEOPLE_NUM, cfg.DATASET.CAMERA_NUM
+    W, H = cfg.NETWORK.HEATMAP_SIZE
+    lo, hi = (torch.tensor(v) for v in zip(*cpu.root_net.synth_bounds()))
+    inject = {"counts": torch.randint(1, P, (3,), generator=g),
+              "roots": lo + (hi - lo) * torch.rand((3 * B, P, 3), generator=g),
+              "noise": 0.02 * torch.randn((3 * B, V, 1, H, W), generator=g)}
+    nets = ("backbone.", "attn.", "root_net.", "pose_net.")
+
+    def run(model, brs, bn_eval):
+        model.load_state_dict(start)  # a train-mode run moves the statistics
+        model.zero_grad(set_to_none=True)
+        _, _, gc, losses = model.ssv_losses(*brs, train_posenet_stage=True, use_l1_stage=True,
+                                            train=True, bn_eval=bn_eval, synth_inject=inject)
+        sum(v.mean() for v in losses.values()).backward()
+        grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+        return {k: float(v.detach()) for k, v in losses.items()}, grads, gc.detach().cpu()
+
+    def errors(grads, ref):
+        """Per tensor: max abs distance to the CPU's gradient over that
+        gradient's max; tensors below 1e-5 of their net's largest gradient
+        (zero in exact arithmetic) are left out."""
+        out = {}
+        for net in nets:
+            top = max(float(v.abs().max()) for k, v in ref.items() if k.startswith(net))
+            out.update({k: float((grads[k] - v).abs().max() / v.abs().max())
+                        for k, v in ref.items()
+                        if k.startswith(net) and float(v.abs().max()) > 1e-5 * top})
+        return out
+
+    hm_layer = "backbone.final_layer.weight"
+    report = {}
+    for bn_eval in (True, False):
+        lc, grads_c, gcc = run(cpu, branches, bn_eval)
+        slicewarp.reset_launches()
+        lg, grads_g, gcg = run(gpu, branches_gpu, bn_eval)
+        assert slicewarp.LAUNCHES["sample_view_adjoint"] == V, dict(slicewarp.LAUNCHES)
+        assert slicewarp.LAUNCHES["sample_views_mean"] == 0, dict(slicewarp.LAUNCHES)
+        assert torch.equal(gcg[..., 3], gcc[..., 3]), (gcg[..., 3], gcc[..., 3])
+        assert set(TERMS) <= set(lc), sorted(lc)
+        loss_rel = {k: _rel(lc[k], lg[k]) for k in lc}
+        err = errors(grads_g, grads_c)
+        med = sorted(err.values())[len(err) // 2]
+        worst = max(err, key=err.get)
+        report["bn_eval" if bn_eval else "train_mode"] = {
+            "loss_max_rel_err": max(loss_rel.values()),
+            "grad_err_card_vs_cpu": {"max": err[worst], "max_at": worst, "median": med,
+                                     hm_layer: err[hm_layer]},
+            "parameters_compared": len(err), "losses_card": lg}
+    emit({"phase": "train_parity", "config": "small f32 (ResNet-18 + attention, 3x256x128, "
+          "16^3, K=4), batch 2", **report})
+    for mode in report.values():
+        assert mode["loss_max_rel_err"] <= 1e-4, mode
+    held = report["bn_eval"]["grad_err_card_vs_cpu"]
+    assert held[hm_layer] <= 1e-3, held
+    assert held["max"] <= 1e-2 and held["median"] <= 1e-3, held
+
+
+def phase_kernels(model, br, gc, launches, train_model, train_brs, train_launches):
     """Each kernel at the main path's shapes and on its sample points (the
     flagship scene's projected grids, rebuilt from the same seeded run),
     with seeded uniform heatmaps in place of the random-weight backbone's
@@ -294,6 +502,81 @@ def phase_kernels(model, br, gc, launches):
         "library_ms": None,
         "shapes": {"hm": list(hm.shape), "points": [B, V, N], "candidates": k, "out": "bf16"},
     })
+    del px, py, bnd, hm
+    rows[0]["launches_per_train_step"] = train_launches["sample_view"]
+    rows[1]["launches_per_train_step"] = train_launches["sample_views_mean"]
+
+    # sample_view_adjoint: the train step's PoseNet fold (2B), one view, all
+    # K candidates' 64^3 cubes, J = 15, a seeded uniform cotangent
+    pn = train_model.pose_net
+    b12 = cat_branches(train_brs[0], train_brs[1])
+    gc_t = train_model.do_inference(train_brs[2])[2]  # every candidate valid
+    assert bool((gc_t[..., 3] >= 0).all())
+    B2 = b12.batch_size
+    grids = compute_grid(pn.grid_size, torch.cat([gc_t, gc_t])[..., :3], pn.cube_size)
+    sg, _ = compute_sample_grid(grids.reshape(B2, 1, -1, 3), b12.cam, b12.trans, pn.image_wh,
+                                (W, H), b12.orig_wh)
+    px, py = (t[:, 0].contiguous() for t in to_pixels(sg, (W, H)))
+    lib_grid = sg[:, 0, None].contiguous()  # (B2, 1, N, 2)
+    del sg, grids
+    N = px.shape[1]
+    hm2 = torch.rand(B2, H, W, J, generator=g, device=px.device)
+    cot = torch.rand(B2, N, J, generator=g, device=px.device)
+    got = slicewarp.sample_view_adjoint(cot, px, py, (H, W))
+    again = slicewarp.sample_view_adjoint(cot, px, py, (H, W))
+    plain = slicewarp.sample_view_adjoint_plain(cot, px, py, (H, W))
+    peak = float(plain.abs().max())
+    err = float((got - plain).abs().max())
+    # float32 sums of some thousand terms per texel, added in any order by
+    # the kernel's atomics and by index_add_'s: 2e-5 of the largest gradient
+    tol = 2e-5 * peak
+    assert err <= tol, ("sample_view_adjoint", err, peak)
+    plain64 = slicewarp.sample_view_adjoint_plain(cot.double(), px, py, (H, W))
+    err64 = float((got.double() - plain64).abs().max())
+    del plain64
+    # <sample_view(h), g> == <h, adjoint(g)>, both sums in float64
+    samp = slicewarp.sample_view(hm2, px, py)
+    lhs = float((samp.double() * cot.double()).sum())
+    rhs = float((hm2.double() * got.double()).sum())
+    assert _rel(lhs, rhs) <= 1e-5, (lhs, rhs)
+    fwd_err = float((samp - slicewarp.sample_view_plain(hm2, px, py)).abs().max())
+    assert fwd_err <= 1e-5, ("sample_view J=15", fwd_err)
+    del samp
+    # the dense cotangent is the worst case: in a train step the rows of
+    # points outside the view's image are exactly zero and the kernel skips
+    # them (scripts/profile_torch_train.py times it on a step's own cotangent)
+    hm_nchw = hm2.permute(0, 3, 1, 2).contiguous().requires_grad_()
+    lib_out = torch.nn.functional.grid_sample(hm_nchw, lib_grid, align_corners=True)
+    cot_lib = cot.permute(0, 2, 1)[:, :, None].contiguous()  # (B2, J, 1, N)
+
+    def lib_call():
+        return torch.autograd.grad(lib_out, hm_nchw, cot_lib, retain_graph=True)[0]
+
+    lib_err = float((lib_call().permute(0, 2, 3, 1) - got).abs().max())
+    # bytes: g, px, py read once, the heatmap gradient written once;
+    # operations: 2 per tap and channel and 12 for the weights
+    bms, by = bound(4 * (B2 * N * J + 2 * B2 * N + B2 * H * W * J), B2 * N * (8 * J + 12))
+    fwd_bms, _ = bound(4 * (B2 * H * W * J + 2 * B2 * N + B2 * N * J), B2 * N * (8 * J + 12))
+    rows.append({
+        "name": "sample_view_adjoint", "route": "cuda", "source": SOURCE,
+        "replaces": "selfpose3d_tpu/ops/slicewarp.py:1162 (_slice_warp_adjoint_kernel)",
+        "launches": train_launches["sample_view_adjoint"], "max_abs_err": err,
+        "max_abs_err_vs_float64_plain": err64, "max_abs_grad": peak,
+        "tolerance": tol, "bit_equal_two_runs": bool(torch.equal(got, again)),
+        "inner_product_rel_err": _rel(lhs, rhs),
+        "ms": cuda_ms(lambda: slicewarp.sample_view_adjoint(cot, px, py, (H, W)), 20),
+        "plain_ms": cuda_ms(lambda: slicewarp.sample_view_adjoint_plain(cot, px, py, (H, W)), 3),
+        "bound_ms": bms, "bound_by": by,
+        "library_ms": cuda_ms(lib_call, 10),
+        "library": "torch.autograd.grad of F.grid_sample(align_corners=True, "
+                   "padding_mode='zeros') w.r.t. its input",
+        "library_max_abs_err": lib_err,
+        "shapes": {"g": list(cot.shape), "hm": list(hm2.shape)},
+        "forward_at_these_shapes": {
+            "name": "sample_view", "max_abs_err": fwd_err, "bound_ms": fwd_bms,
+            "ms": cuda_ms(lambda: slicewarp.sample_view(hm2, px, py), 20),
+            "plain_ms": cuda_ms(lambda: slicewarp.sample_view_plain(hm2, px, py), 3)},
+    })
     return rows
 
 
@@ -306,7 +589,12 @@ def main() -> int:
     model, launches, br, gc = phase_main()
     phase_geometry(model)
     phase_parity()
-    rows = phase_kernels(model, br, gc, launches)
+    train_model, train_brs, train_launches = phase_train()
+    phase_train_parity()
+    rows = phase_kernels(model, br, gc, launches, train_model, train_brs, train_launches)
+    queued_kernel_bounds()
+    for row in rows:
+        assert row["launches"] > 0, row["name"]
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 3)})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

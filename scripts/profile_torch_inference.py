@@ -57,13 +57,53 @@ def family(name: str) -> str:
     n = name.lower()
     if "sample_view" in n:
         return "port samplers (CUDA)"
-    if any(k in n for k in ("conv", "cudnn", "xmma", "gemm", "cutlass", "fprop", "implicit", "wgmma")):
+    if any(k in n for k in ("conv", "cudnn", "xmma", "gemm", "cutlass", "fprop", "dgrad", "wgrad",
+                            "implicit", "wgmma")):
         return "convolution / matmul"
+    if "batch_norm" in n or "batchnorm" in n:
+        return "batch norm (train mode)"
+    if "multi_tensor" in n or "adam" in n:
+        return "optimizer (foreach)"
     if "pool" in n:
         return "pooling"
     if "sort" in n or "radix" in n:
         return "sort (top-k)"
     return "elementwise / other"
+
+
+def summarize_trace(prof, wall_us: float) -> dict:
+    """One traced window: the device-busy share of its wall time (union of
+    the kernels' spans), device time by kernel family, the top kernels."""
+    from torch.autograd import DeviceType
+
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    by_family, by_name, counts = defaultdict(float), defaultdict(float), defaultdict(int)
+    for e in kernels:
+        d = e.time_range.end - e.time_range.start
+        by_family[family(e.name)] += d / 1e3
+        by_name[e.name[:90]] += d / 1e3
+        counts[e.name[:90]] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {
+        "wall_ms": round(wall_us / 1e3, 3),
+        "device_busy_ms": round(busy / 1e3, 3),
+        "device_idle_share": round(1 - busy / wall_us, 4),
+        "kernel_launches": len(kernels),
+        "device_ms_by_family": {k: round(v, 3) for k, v in
+                                sorted(by_family.items(), key=lambda kv: -kv[1])},
+        "top_kernels_ms": [[n, round(v, 3), counts[n]] for n, v in top],
+    }
 
 
 @torch.no_grad()
@@ -95,7 +135,6 @@ def main() -> int:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / args.reps * 1e3
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -103,39 +142,13 @@ def main() -> int:
         model.do_inference(br)
         torch.cuda.synchronize()
         traced_wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    by_family, by_name, counts = defaultdict(float), defaultdict(float), defaultdict(int)
-    for e in kernels:
-        d = e.time_range.end - e.time_range.start
-        by_family[family(e.name)] += d / 1e3
-        by_name[e.name[:90]] += d / 1e3
-        counts[e.name[:90]] += 1
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    traced = summarize_trace(prof, traced_wall_us)
     print(json.dumps({
         "nvidia_smi": smi, "batch": args.batch, "reps": args.reps,
         "do_inference_ms": round(wall_ms, 3),
         "frames_per_s": round(args.batch * 1e3 / wall_ms, 3),
         "stage_ms": {k: round(v, 3) for k, v in ms.items()},
-        "traced_call": {
-            "wall_ms": round(traced_wall_us / 1e3, 3),
-            "device_busy_ms": round(busy / 1e3, 3),
-            "device_idle_share": round(1 - busy / traced_wall_us, 4),
-            "kernel_launches": len(kernels),
-            "device_ms_by_family": {k: round(v, 3) for k, v in
-                                    sorted(by_family.items(), key=lambda kv: -kv[1])},
-            "top_kernels_ms": [[n, round(v, 3), counts[n]] for n, v in top],
-        },
+        "traced_call": traced,
         "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2 ** 30, 3),
     }))
     return 0

@@ -7,10 +7,14 @@ to find, and it imports nothing of JAX or of ``selfpose3d_tpu``:
   config.py   the same dataclass config schema (own copy)
   geometry/   camera projection, affine transforms, voxel grids
   data/       AugBranch batch structure, synthetic Panoptic-like scenes
-  ops/        sampling (plain + hand-written CUDA kernels), unprojection,
-              proposals, soft-argmax, Gaussian rendering
-  models/     PoseResNet, V2VNet, RootNet, PoseNet, MultiPersonPoseNetSSV
-  convert/    JAX parameter trees -> this package's state dicts
+  ops/        sampling (plain + hand-written CUDA kernels, forward and
+              adjoint), unprojection, proposals, soft-argmax, Gaussian
+              rendering, Hungarian matching
+  models/     PoseResNet, attention net, V2VNet, RootNet, PoseNet,
+              MultiPersonPoseNetSSV (inference and the SSV losses)
+  train/      train state (Adam/SGD, frozen sub-networks), LR schedule,
+              the SSV train step
+  convert/    JAX parameter (or gradient) trees -> this package's state dicts
   csrc/       CUDA C++ sources, built with nvcc at first use
 
 Entry points run on the card unless the caller passes ``device="cpu"``.

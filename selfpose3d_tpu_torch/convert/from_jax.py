@@ -8,7 +8,10 @@ reference's torch names:
   * ConvTranspose kernels are spatially un-flipped, (*k, I, O) -> (I, O, *k)
     (flax applies the flipped kernel: torch2jax.py:30-34, v2v_net.py:132);
   * BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var.
-The attention backbone (``attn``) is not ported and is ignored.
+
+The conversion is linear in the parameters (transposes and flips only), so
+applied to a JAX **gradient** tree it yields this package's gradients
+under the same names (``batch_stats`` may be left out then).
 """
 
 from __future__ import annotations
@@ -57,11 +60,13 @@ class _Writer:
 
     def bn(self, path, name):
         p = self._get(self.params, path)
-        s = self._get(self.stats, path)
-        for leaf, src in (("weight", p["scale"]), ("bias", p["bias"]),
-                          ("running_mean", s["mean"]), ("running_var", s["var"])):
+        leaves = [("weight", p["scale"]), ("bias", p["bias"])]
+        if self.stats:
+            s = self._get(self.stats, path)
+            leaves += [("running_mean", s["mean"]), ("running_var", s["var"])]
+            self.sd[f"{name}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+        for leaf, src in leaves:
             self.sd[f"{name}.{leaf}"] = torch.from_numpy(_np(src).copy())
-        self.sd[f"{name}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
 
 
 def pose_resnet_state_dict(params: Mapping, stats: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -123,15 +128,27 @@ def v2v_state_dict(params: Mapping, stats: Mapping, prefix: str = "") -> Dict[st
 
 def from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """JAX ``MultiPersonPoseNetSSV`` variables -> ``MultiPersonPoseNetSSV``
-    state dict (backbone, root_net, pose_net; ``attn`` ignored)."""
+    state dict (backbone, attn, root_net, pose_net). Without
+    ``batch_stats`` (a gradient tree) only the parameters' names appear."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
+
+    def sub(*path):
+        node = stats
+        for p in path:
+            node = node.get(p, {}) if node else {}
+        return node
+
     sd = {}
     if "backbone" in params:
-        sd.update(pose_resnet_state_dict(params["backbone"], stats["backbone"], "backbone."))
+        sd.update(pose_resnet_state_dict(params["backbone"], sub("backbone"), "backbone."))
+    if "attn" in params:
+        sd.update(pose_resnet_state_dict(
+            params["attn"]["backbone"], sub("attn", "backbone"), "attn.backbone."
+        ))
     for net in ("root_net", "pose_net"):
         if net in params:
             sd.update(v2v_state_dict(
-                params[net]["v2v_net"], stats[net]["v2v_net"], f"{net}.v2v_net."
+                params[net]["v2v_net"], sub(net, "v2v_net"), f"{net}.v2v_net."
             ))
     return sd

@@ -2,7 +2,9 @@
 //
 // sp3d_sample_view replaces the TPU kernel _slice_warp_kernel
 // (selfpose3d_tpu/ops/slicewarp.py:323, per-slice body _warp_slice :150);
-// sp3d_sample_views_mean replaces _slice_warp_agg_kernel (:664).
+// sp3d_sample_views_mean replaces _slice_warp_agg_kernel (:664);
+// sp3d_sample_view_adjoint replaces _slice_warp_adjoint_kernel (:1162, per-
+// slice body _adjoint_slice :907), the backward of the per-view sampler.
 //
 // What they compute: exact 4-tap bilinear samples of channel-minor
 // heatmaps (B, [V,] H, W, J) at pixel coordinates in the align-corners
@@ -31,6 +33,22 @@
 // V2V input, with no transpose after it. The per-view sampler (RootNet:
 // J=1, 128,000 points a view) moves about 5 MB a launch and is bound by
 // launch latency.
+//
+// The adjoint is the transpose of sp3d_sample_view: every point adds
+// w_tap * g[b, n, :] into the 4 texels it sampled, taps outside the image
+// dropped, with the weights of bilinear<> below. Coordinates get no
+// gradient. The TPU kernel turns this scatter into lane cumsums, a
+// binary-search count and boundary gathers because TPU scatters are serial;
+// none of that carries over. Here it is one thread per (batch, point) and
+// one float32 atomicAdd (a RED to L2) per tap and channel into a heatmap
+// gradient the caller has zeroed. Bytes bound it (g read once, 4*J bytes a
+// point; the heatmap gradient is small), but what it costs is atomic
+// traffic: neighbouring voxels project into the same texel (a 64^3 cube's
+// voxel pitch is well under one heatmap pixel), so the adds serialise in
+// L2. Contributions that are exactly zero (the cotangent of a zeroed
+// candidate cube, a zero tap weight) are skipped: adding 0 changes nothing.
+// Float atomics add in an order that varies from run to run, so two runs
+// agree only to rounding of the sums.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -122,6 +140,46 @@ sample_views_mean_kernel(const float* __restrict__ hm, const float* __restrict__
   }
 }
 
+template <int JMAX>
+__global__ void __launch_bounds__(kThreads)
+sample_view_adjoint_kernel(const float* __restrict__ g, const float* __restrict__ px,
+                           const float* __restrict__ py, float* __restrict__ dhm,
+                           int64_t total, int N, int H, int W, int J) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int64_t b = i / N;
+  float gj[JMAX];
+  const float* gp = g + i * J;
+  bool any = false;
+#pragma unroll
+  for (int j = 0; j < JMAX; ++j) {
+    gj[j] = (j < J) ? gp[j] : 0.f;
+    any = any || (gj[j] != 0.f);
+  }
+  if (!any) return;
+  const float x = px[i];
+  const float y = py[i];
+  const float x0f = floorf(x);
+  const float y0f = floorf(y);
+  const float wx = x - x0f;
+  const float wy = y - y0f;
+  const int x0 = static_cast<int>(x0f);
+  const int y0 = static_cast<int>(y0f);
+  const float w[4] = {(1.f - wx) * (1.f - wy), wx * (1.f - wy), (1.f - wx) * wy, wx * wy};
+  float* img = dhm + b * H * W * J;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const int xi = x0 + (t & 1);
+    const int yi = y0 + (t >> 1);
+    if (xi < 0 || xi >= W || yi < 0 || yi >= H || w[t] == 0.f) continue;
+    float* p = img + (static_cast<int64_t>(yi) * W + xi) * J;
+#pragma unroll
+    for (int j = 0; j < JMAX; ++j) {
+      if (j < J && gj[j] != 0.f) atomicAdd(p + j, gj[j] * w[t]);
+    }
+  }
+}
+
 unsigned blocks_for(int64_t total) {
   return static_cast<unsigned>((total + kThreads - 1) / kThreads);
 }
@@ -177,4 +235,25 @@ extern "C" int sp3d_sample_views_mean(const float* hm, const float* px, const fl
                              W, J, s);
   }
   return launch_views_mean(hm, px, py, bnd, static_cast<float*>(out), B, V, N, H, W, J, s);
+}
+
+// Adjoint of sp3d_sample_view: g (B, N, J) f32; px, py (B, N) f32 ->
+// dhm (B, H, W, J) f32 += sum over points and taps of w_tap * g. The caller
+// zeroes dhm first. Returns cudaGetLastError() after the launch.
+extern "C" int sp3d_sample_view_adjoint(const float* g, const float* px, const float* py,
+                                        float* dhm, int B, int N, int H, int W, int J,
+                                        void* stream) {
+  const int64_t total = static_cast<int64_t>(B) * N;
+  if (total == 0) return 0;
+  const unsigned grid = blocks_for(total);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SP3D_ADJOINT(JM) \
+  sample_view_adjoint_kernel<JM><<<grid, kThreads, 0, s>>>(g, px, py, dhm, total, N, H, W, J)
+  if (J <= 1) SP3D_ADJOINT(1);
+  else if (J <= 4) SP3D_ADJOINT(4);
+  else if (J <= 16) SP3D_ADJOINT(16);
+  else if (J <= 32) SP3D_ADJOINT(32);
+  else return static_cast<int>(cudaErrorInvalidValue);
+#undef SP3D_ADJOINT
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,4 @@
-"""Model registry and the inference entry point ``get_model``."""
+"""Model registry and the entry point ``get_model``."""
 
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ import torch.nn as nn
 from selfpose3d_tpu_torch.device import resolve_device
 from selfpose3d_tpu_torch.models.multi_person import MultiPersonPoseNetSSV
 from selfpose3d_tpu_torch.models.pose_net import PoseNet
-from selfpose3d_tpu_torch.models.pose_resnet import PoseResNet
+from selfpose3d_tpu_torch.models.pose_resnet import PoseResAttnNet, PoseResNet
 from selfpose3d_tpu_torch.models.root_net import RootNet
 from selfpose3d_tpu_torch.models.v2v_net import V2VNet
 
@@ -45,7 +45,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 def get_model(cfg, device="cuda", dtype=None, seed: int = 0) -> nn.Module:
     """Build the configured model (cfg.MODEL) in eval mode on ``device``,
-    randomly initialised from ``seed``.
+    randomly initialised from ``seed``. Parameters are float32; ``dtype``
+    is the compute dtype the convolutions cast them to at use.
 
     Runs on the card unless ``device="cpu"``; raises when CUDA is asked for
     and absent. ``dtype`` defaults to cfg.DTYPE. Sets TF32 off for both
@@ -68,6 +69,7 @@ def get_model(cfg, device="cuda", dtype=None, seed: int = 0) -> nn.Module:
 __all__ = [
     "MultiPersonPoseNetSSV",
     "PoseNet",
+    "PoseResAttnNet",
     "PoseResNet",
     "RootNet",
     "V2VNet",

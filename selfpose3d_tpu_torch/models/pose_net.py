@@ -1,14 +1,21 @@
 """PoseNet: per-candidate 3D pose regression (ref: lib/models/pose_regression_net.py:31-53).
 
 A 64^3 cube is centered at every root candidate; all views' heatmaps are
-sampled into every cube by one ``sample_views_mean`` kernel launch, a
-V2VNet (J -> J) scores each joint per voxel, and a soft-argmax regresses
-metric joint positions. The K candidates are one batch axis of the V2V.
+sampled into every cube, a V2VNet (J -> J) scores each joint per voxel,
+and a soft-argmax regresses metric joint positions. The K candidates are
+one batch axis of the V2V.
+
+One rule picks the sampler: where a gradient must reach the heatmaps
+(autograd is on and they require grad) each view is sampled with
+``sample_view``, whose backward is the adjoint kernel; otherwise one
+``sample_views_mean`` launch samples all views. Train mode
+(``module.training``) restricts the BatchNorm statistics to the valid
+candidates.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -64,17 +71,22 @@ class PoseNet(nn.Module):
         trans: torch.Tensor,
         orig_wh: torch.Tensor,
         grid_centers: torch.Tensor,
+        hflip: Optional[torch.Tensor] = None,
         bucketed: bool = True,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """-> (pred (B, K, J, 3) world mm, zero for invalid candidates;
-        valid (B, K) float mask, flag >= 0)."""
+        valid (B, K) float mask, flag >= 0).
+
+        ``hflip``: optional (B,) flip flags. ``bucketed=False`` runs the
+        given K candidates as they are (the train step, which slices the
+        score-sorted proposals itself)."""
         K = grid_centers.shape[1]
         k = self.bucket(grid_centers) if bucketed else K
-        pred = self._run(heatmaps, cam, trans, orig_wh, grid_centers[:, :k])
+        pred = self._run(heatmaps, cam, trans, orig_wh, grid_centers[:, :k], hflip)
         pred = F.pad(pred, (0, 0, 0, 0, 0, K - k))
         return pred, (grid_centers[..., 3] >= 0).to(torch.float32)
 
-    def _run(self, heatmaps, cam, trans, orig_wh, grid_centers):
+    def _run(self, heatmaps, cam, trans, orig_wh, grid_centers, hflip=None):
         B, V, H, W, J = heatmaps.shape
         K = grid_centers.shape[1]
         X, Y, Z = self.cube_size
@@ -82,14 +94,27 @@ class PoseNet(nn.Module):
         valid = (grid_centers[..., 3] >= 0).to(torch.float32)  # (B, K)
 
         grids = compute_grid(self.grid_size, centers, self.cube_size)  # (B, K, N, 3)
+        needs_grad = torch.is_grad_enabled() and heatmaps.requires_grad
         cubes = sample_cubes(
             heatmaps, grids.reshape(B, K * X * Y * Z, 3), cam, trans,
-            self.image_wh, orig_wh, out_dtype=self.dtype,
+            self.image_wh, orig_wh, out_dtype=self.dtype, hflip=hflip,
+            differentiable=needs_grad,
         ).reshape(B * K, X, Y, Z, J)
         del grids
-        # zero invalid candidates' cubes so they contribute nothing downstream
-        cubes.mul_(valid.reshape(B * K, 1, 1, 1, 1).to(cubes.dtype))
-        scored = self.v2v_net(cubes)  # (B*K, X, Y, Z, J) float32
+        # zero invalid candidates' cubes so they contribute nothing
+        # downstream (in place only where autograd does not need the cubes)
+        keep = valid.reshape(B * K, 1, 1, 1, 1).to(cubes.dtype)
+        cubes = cubes * keep if needs_grad else cubes.mul_(keep)
+        # BatchNorm statistics over the valid candidates only (the reference
+        # runs V2V on those alone, ref: pose_regression_net.py:49-51); over
+        # all of them when none is valid, so the moments stay finite (the
+        # loss is gated off then)
+        bn_mask = None
+        if self.training:
+            sel = valid.reshape(B * K) > 0
+            if bool(sel.any()) and not bool(sel.all()):
+                bn_mask = sel
+        scored = self.v2v_net(cubes, bn_mask)  # (B*K, X, Y, Z, J) float32
 
         offs = axis_offsets(self.grid_size, self.cube_size, heatmaps.device)
         c = centers.reshape(B * K, 3)

@@ -1,5 +1,5 @@
 """PoseResNet backbone: ResNet-{18,34,50,101,152} + deconv head
-(ref: lib/models/pose_resnet.py:26-284), inference only.
+(ref: lib/models/pose_resnet.py:26-284), and the sigmoid-headed attention net.
 
 Stem conv7x7/s2 + maxpool, 4 residual stages, 3 ConvTranspose2d(k=4, s=2,
 p=1) deconvs, a 1x1 final conv: 960x512 images -> 240x128 heatmaps.
@@ -15,7 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from selfpose3d_tpu_torch.models.norm import BatchNorm2d, cast_convs
+from selfpose3d_tpu_torch.models.norm import BatchNorm2d, Conv2d, ConvTranspose2d
 
 
 class BasicBlock(nn.Module):
@@ -23,14 +23,14 @@ class BasicBlock(nn.Module):
 
     def __init__(self, cin: int, planes: int, stride: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(cin, planes, 3, stride, 1, bias=False)
+        self.conv1 = Conv2d(cin, planes, 3, stride, 1, bias=False)
         self.bn1 = BatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, 1, 1, bias=False)
         self.bn2 = BatchNorm2d(planes)
         self.downsample = None
         if stride != 1 or cin != planes:
             self.downsample = nn.Sequential(
-                nn.Conv2d(cin, planes, 1, stride, bias=False), BatchNorm2d(planes)
+                Conv2d(cin, planes, 1, stride, bias=False), BatchNorm2d(planes)
             )
 
     def forward(self, x):
@@ -46,16 +46,16 @@ class Bottleneck(nn.Module):
     def __init__(self, cin: int, planes: int, stride: int = 1):
         super().__init__()
         cout = planes * 4
-        self.conv1 = nn.Conv2d(cin, planes, 1, bias=False)
+        self.conv1 = Conv2d(cin, planes, 1, bias=False)
         self.bn1 = BatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, stride, 1, bias=False)
         self.bn2 = BatchNorm2d(planes)
-        self.conv3 = nn.Conv2d(planes, cout, 1, bias=False)
+        self.conv3 = Conv2d(planes, cout, 1, bias=False)
         self.bn3 = BatchNorm2d(cout)
         self.downsample = None
         if stride != 1 or cin != cout:
             self.downsample = nn.Sequential(
-                nn.Conv2d(cin, cout, 1, stride, bias=False), BatchNorm2d(cout)
+                Conv2d(cin, cout, 1, stride, bias=False), BatchNorm2d(cout)
             )
 
     def forward(self, x):
@@ -91,7 +91,7 @@ class PoseResNet(nn.Module):
         super().__init__()
         self.dtype = dtype
         block, layers = RESNET_SPEC[num_layers]
-        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = BatchNorm2d(64)
         cin = 64
         for si, (planes, n) in enumerate(zip((64, 128, 256, 512), layers)):
@@ -106,15 +106,14 @@ class PoseResNet(nn.Module):
             if kernel != 4:
                 raise ValueError("only k=4 deconvs are supported (reference default)")
             deconvs += [
-                nn.ConvTranspose2d(cin, filters, 4, 2, 1, bias=deconv_with_bias),
+                ConvTranspose2d(cin, filters, 4, 2, 1, bias=deconv_with_bias),
                 BatchNorm2d(filters),
                 nn.ReLU(inplace=True),
             ]
             cin = filters
         self.deconv_layers = nn.Sequential(*deconvs)
         pad = 1 if final_conv_kernel == 3 else 0
-        self.final_layer = nn.Conv2d(cin, num_joints, final_conv_kernel, 1, pad)
-        cast_convs(self, dtype, keep=(self.final_layer,))
+        self.final_layer = Conv2d(cin, num_joints, final_conv_kernel, 1, pad)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2).to(self.dtype)  # NHWC -> NCHW view
@@ -125,3 +124,16 @@ class PoseResNet(nn.Module):
         x = self.deconv_layers(x)
         out = self.final_layer(x.float())
         return out.permute(0, 2, 3, 1)  # (B, H/4, W/4, J)
+
+
+class PoseResAttnNet(nn.Module):
+    """Sigmoid-headed PoseResNet producing supervision-attention maps in
+    [0, 1] (ref: lib/models/pose_resnet.py:287-299)."""
+
+    def __init__(self, num_layers: int = 18, num_joints: int = 15,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.backbone = PoseResNet(num_layers=num_layers, num_joints=num_joints, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.sigmoid(self.backbone(x))

@@ -1,4 +1,5 @@
-from selfpose3d_tpu_torch.ops.gaussian import render_gaussian_heatmaps
+from selfpose3d_tpu_torch.ops.gaussian import render_gaussian_cube_3d, render_gaussian_heatmaps
+from selfpose3d_tpu_torch.ops.matching import hungarian, masked_assignment_cost
 from selfpose3d_tpu_torch.ops.proposal import (
     max_pool_nms_3d,
     nms_topk,
@@ -10,6 +11,8 @@ from selfpose3d_tpu_torch.ops.slicewarp import (
     LAUNCHES,
     reset_launches,
     sample_view,
+    sample_view_adjoint,
+    sample_view_adjoint_plain,
     sample_view_plain,
     sample_views_mean,
     sample_views_mean_plain,
@@ -23,7 +26,10 @@ from selfpose3d_tpu_torch.ops.unproject import (
 )
 
 __all__ = [
+    "render_gaussian_cube_3d",
     "render_gaussian_heatmaps",
+    "hungarian",
+    "masked_assignment_cost",
     "max_pool_nms_3d",
     "nms_topk",
     "proposals_soft",
@@ -32,6 +38,8 @@ __all__ = [
     "LAUNCHES",
     "reset_launches",
     "sample_view",
+    "sample_view_adjoint",
+    "sample_view_adjoint_plain",
     "sample_view_plain",
     "sample_views_mean",
     "sample_views_mean_plain",

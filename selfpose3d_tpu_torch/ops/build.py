@@ -35,6 +35,7 @@ SIGNATURES = {
     "slicewarp": {
         "sp3d_sample_view": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "sp3d_sample_views_mean": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "sp3d_sample_view_adjoint": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
 }
 

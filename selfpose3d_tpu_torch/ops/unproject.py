@@ -18,6 +18,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from selfpose3d_tpu_torch.geometry.cameras import CameraParams, affine_points, project_points
+from selfpose3d_tpu_torch.ops.gaussian import clip01
 from selfpose3d_tpu_torch.ops.slicewarp import sample_view, sample_views_mean
 
 
@@ -77,6 +78,32 @@ def to_pixels(sample_grid: torch.Tensor, heatmap_wh: Tuple[int, int]):
     return px, py
 
 
+def hflip_views(hflip: Optional[torch.Tensor], B: int, V: int) -> Optional[torch.Tensor]:
+    """(B,) per-sample flip flags -> (B, V), one per view."""
+    return None if hflip is None else hflip.reshape(-1, 1).expand(B, V)
+
+
+def sample_views_bounded_mean(
+    heatmaps: torch.Tensor, px: torch.Tensor, py: torch.Tensor, bounding: torch.Tensor
+) -> torch.Tensor:
+    """One ``sample_view`` launch per view, then the bounded mean across
+    views in float32, nan -> 0, clipped to [0, 1]. Autograd reaches the
+    heatmaps through ``sample_view``'s adjoint.
+
+    heatmaps (B, V, H, W, J); px, py, bounding (B, V, N) -> (B, N, J).
+    """
+    wsum = None
+    bsum = None
+    for v in range(heatmaps.shape[1]):
+        samp = sample_view(
+            heatmaps[:, v].contiguous(), px[:, v].contiguous(), py[:, v].contiguous()
+        )  # (B, N, J)
+        term = samp * bounding[:, v, :, None]
+        wsum = term if wsum is None else wsum + term
+        bsum = bounding[:, v] if bsum is None else bsum + bounding[:, v]
+    return clip01(torch.nan_to_num(wsum / (bsum[..., None] + 1e-6), nan=0.0))
+
+
 def unproject_heatmaps(
     heatmaps: torch.Tensor,
     grid: torch.Tensor,
@@ -85,6 +112,7 @@ def unproject_heatmaps(
     image_wh: Tuple[int, int],
     orig_wh: torch.Tensor,
     cube_size: Sequence[int],
+    hflip: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Whole-space unprojection (RootNet): one ``sample_view`` launch per
     view, bounded mean across views in float32.
@@ -94,26 +122,20 @@ def unproject_heatmaps(
       grid: (N, 3) voxel centers shared by the batch, or (B, N, 3).
       cam: CameraParams (B, V); trans (B, V, 3, 3); orig_wh (B, V, 2).
       cube_size: static (X, Y, Z), N = X*Y*Z.
+      hflip: optional (B,) per-sample horizontal-flip flags.
     Returns:
       (B, X, Y, Z, J) float32.
     """
     B, V, H, W, J = heatmaps.shape
     if grid.dim() == 2:
         grid = grid[None]
-    sample_grid, bounding = compute_sample_grid(
-        grid[:, None], cam, trans, image_wh, (W, H), orig_wh
-    )
-    px, py = to_pixels(sample_grid, (W, H))  # (B, V, N)
-    wsum = None
-    bsum = None
-    for v in range(V):
-        samp = sample_view(
-            heatmaps[:, v].contiguous(), px[:, v].contiguous(), py[:, v].contiguous()
-        )  # (B, N, J)
-        term = samp * bounding[:, v, :, None]
-        wsum = term if wsum is None else wsum + term
-        bsum = bounding[:, v] if bsum is None else bsum + bounding[:, v]
-    cubes = torch.nan_to_num(wsum / (bsum[..., None] + 1e-6), nan=0.0).clamp(0.0, 1.0)
+    with torch.no_grad():  # coordinates carry no gradient
+        sample_grid, bounding = compute_sample_grid(
+            grid[:, None], cam, trans, image_wh, (W, H), orig_wh,
+            hflip=hflip_views(hflip, B, V),
+        )
+        px, py = to_pixels(sample_grid, (W, H))  # (B, V, N)
+    cubes = sample_views_bounded_mean(heatmaps, px, py, bounding)
     X, Y, Z = (int(s) for s in cube_size)
     return cubes.reshape(B, X, Y, Z, J)
 
@@ -126,22 +148,34 @@ def sample_cubes(
     image_wh: Tuple[int, int],
     orig_wh: torch.Tensor,
     out_dtype: torch.dtype = torch.float32,
+    hflip: Optional[torch.Tensor] = None,
+    differentiable: bool = False,
 ) -> torch.Tensor:
-    """Per-candidate cube sampling (PoseNet): one ``sample_views_mean``
-    launch over all views and candidates.
+    """Per-candidate cube sampling (PoseNet).
+
+    Inference: one ``sample_views_mean`` launch over all views and
+    candidates. With ``differentiable`` (training): one ``sample_view``
+    launch per view and the bounded mean in torch, so that autograd reaches
+    the heatmaps through the sampler's adjoint kernel; the fused kernel has
+    no backward, as in the JAX package.
 
     Args:
       heatmaps: (B, V, H, W, J) float32.
       grids: (B, M, 3) voxel centers, M = K*X*Y*Z, x-major within a cube.
       cam, trans, orig_wh: batched (B, V).
       out_dtype: output dtype (the model dtype).
+      hflip: optional (B,) per-sample horizontal-flip flags.
     Returns:
       (B, M, J) in ``out_dtype`` == (B, K, X, Y, Z, J) flattened.
     """
-    W, H = heatmaps.shape[3], heatmaps.shape[2]
-    sample_grid, bounding = compute_sample_grid(
-        grids[:, None], cam, trans, image_wh, (W, H), orig_wh
-    )
-    px, py = to_pixels(sample_grid, (W, H))  # (B, V, M)
-    del sample_grid  # (B, V, M, 2): free it before the kernel runs
+    B, V, H, W, _ = heatmaps.shape
+    with torch.no_grad():  # coordinates carry no gradient
+        sample_grid, bounding = compute_sample_grid(
+            grids[:, None], cam, trans, image_wh, (W, H), orig_wh,
+            hflip=hflip_views(hflip, B, V),
+        )
+        px, py = to_pixels(sample_grid, (W, H))  # (B, V, M)
+        del sample_grid  # (B, V, M, 2): free it before the kernel runs
+    if differentiable:
+        return sample_views_bounded_mean(heatmaps, px, py, bounding).to(out_dtype)
     return sample_views_mean(heatmaps.contiguous(), px, py, bounding, out_dtype)

@@ -12,6 +12,8 @@ from selfpose3d_tpu_torch.ops import build
 from selfpose3d_tpu_torch.ops.slicewarp import (
     LAUNCHES,
     sample_view,
+    sample_view_adjoint,
+    sample_view_adjoint_plain,
     sample_view_plain,
     sample_views_mean,
     sample_views_mean_plain,
@@ -64,6 +66,76 @@ def test_sample_views_mean_kernel_matches_plain(cuda, out_dtype, tol):
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
 
 
+@pytest.mark.parametrize("J", [1, 3, 15, 32])
+def test_sample_view_adjoint_kernel_matches_plain(cuda, J):
+    """Float atomics add in any order: the tolerance is 1e-5 of the largest
+    heatmap gradient (sums of some hundred terms per texel)."""
+    g = torch.Generator(device=cuda).manual_seed(J)
+    B, H, W, N = 2, 40, 72, 200_000
+    px, py = _coords(g, (B, N), W, H, cuda)
+    px[:, 0], py[:, 0] = -0.5, -0.25  # top/left edge: only the (1, 1) tap lands
+    cot = torch.randn(B, N, J, generator=g, device=cuda)
+    cot[:, 100:200] = 0.0  # zero cotangents are skipped, not added
+    before = LAUNCHES["sample_view_adjoint"]
+    got = sample_view_adjoint(cot, px, py, (H, W))
+    torch.cuda.synchronize()
+    assert LAUNCHES["sample_view_adjoint"] == before + 1
+    want = sample_view_adjoint_plain(cot.double(), px, py, (H, W))
+    assert got.shape == (B, H, W, J) and got.dtype == torch.float32
+    torch.testing.assert_close(got.double(), want, rtol=0, atol=1e-5 * float(want.abs().max()))
+
+
+def test_sample_view_adjoint_inner_product_identity(cuda):
+    """<sample_view(h), g> == <h, adjoint(g)>: the backward kernel is the
+    transpose of the forward kernel."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    B, H, W, J, N = 2, 40, 72, 15, 100_000
+    hm = torch.rand(B, H, W, J, generator=g, device=cuda)
+    px, py = _coords(g, (B, N), W, H, cuda)
+    cot = torch.rand(B, N, J, generator=g, device=cuda)
+    lhs = float((sample_view(hm, px, py).double() * cot.double()).sum())
+    rhs = float((hm.double() * sample_view_adjoint(cot, px, py, (H, W)).double()).sum())
+    assert abs(lhs - rhs) <= 1e-5 * abs(lhs)
+
+
+def test_sample_view_backward_launches_the_adjoint(cuda):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    B, H, W, J, N = 2, 24, 40, 15, 30_000
+    hm = torch.rand(B, H, W, J, generator=g, device=cuda, requires_grad=True)
+    px, py = _coords(g, (B, N), W, H, cuda)
+    px.requires_grad_()
+    cot = torch.randn(B, N, J, generator=g, device=cuda)
+    before = dict(LAUNCHES)
+    out = sample_view(hm, px, py)
+    # a strided cotangent: the backward makes it contiguous for the kernel
+    out.backward(cot.transpose(0, 1).contiguous().transpose(0, 1))
+    torch.cuda.synchronize()
+    assert LAUNCHES["sample_view"] == before["sample_view"] + 1
+    assert LAUNCHES["sample_view_adjoint"] == before["sample_view_adjoint"] + 1
+    assert px.grad is None  # coordinates get no gradient
+    want = sample_view_adjoint_plain(cot, px.detach(), py, (H, W))
+    torch.testing.assert_close(hm.grad, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+    # no backward launch when the heatmap needs no gradient
+    sample_view(hm.detach(), px.detach(), py).sum()
+    assert LAUNCHES["sample_view_adjoint"] == before["sample_view_adjoint"] + 1
+
+
+def test_cuda_samplers_reject_what_the_kernels_do_not_take(cuda):
+    hm = torch.rand(1, 8, 8, 3, device=cuda)
+    c = torch.rand(1, 10, device=cuda)
+    cot = torch.rand(1, 10, 3, device=cuda)
+    before = dict(LAUNCHES)
+    with pytest.raises(ValueError, match="contiguous"):
+        sample_view_adjoint(cot.transpose(1, 2).contiguous().transpose(1, 2), c, c, (8, 8))
+    with pytest.raises(TypeError, match="float32"):
+        sample_view_adjoint(cot.double(), c.double(), c.double(), (8, 8))
+    with pytest.raises(ValueError, match="several devices"):
+        sample_view_adjoint(cot, c.cpu(), c, (8, 8))
+    with pytest.raises(RuntimeError, match="inference-only"):
+        sample_views_mean(hm[:, None].requires_grad_(), c[:, None], c[:, None], c[:, None])
+    assert LAUNCHES == before
+
+
 def test_cuda_tensor_raises_when_library_unbuilt(cuda, monkeypatch):
     def unbuilt(name):
         raise RuntimeError(f"lib{name} is not built")
@@ -76,6 +148,8 @@ def test_cuda_tensor_raises_when_library_unbuilt(cuda, monkeypatch):
         sample_view(hm, px, px)
     with pytest.raises(RuntimeError, match="not built"):
         sample_views_mean(hm[:, None], px[:, None], px[:, None], px[:, None])
+    with pytest.raises(RuntimeError, match="not built"):
+        sample_view_adjoint(torch.rand(1, 10, 1, device=cuda), px, px, (8, 8))
     assert LAUNCHES == before
 
 
@@ -100,3 +174,40 @@ def test_do_inference_on_card_matches_cpu(cuda):
     err = (pg[..., :3] - pc[..., :3]).norm(dim=-1)
     assert float(err.max()) < 1.0
     assert np.isfinite(pg.numpy()).all()
+
+
+def test_train_step_on_card_moves_every_network(cuda):
+    """Two SSV train steps of a small float32 model on the card: finite
+    losses, launch counts per step, every sub-network updated."""
+    from chip_smoke import TERMS, randomize, small_train_cfg, train_branches
+    from selfpose3d_tpu_torch.models import get_model
+    from selfpose3d_tpu_torch.train import create_train_state, make_ssv_train_step
+
+    cfg = small_train_cfg()
+    model = randomize(get_model(cfg, device="cpu"), seed=3).to(cuda)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    state = create_train_state(cfg, model)
+    step = make_ssv_train_step(model, train_posenet_stage=True, use_l1_stage=True)
+    branches = train_branches(cfg, 2, seed=1, device=cuda)
+    gen = torch.Generator().manual_seed(0)
+    V = cfg.DATASET.CAMERA_NUM
+    for _ in range(2):
+        start = dict(LAUNCHES)
+        metrics = step(state, *branches, generator=gen)
+        torch.cuda.synchronize()
+        assert LAUNCHES["sample_view"] == start["sample_view"] + 3 * V
+        assert LAUNCHES["sample_view_adjoint"] == start["sample_view_adjoint"] + V
+        assert LAUNCHES["sample_views_mean"] == start["sample_views_mean"]
+        assert set(TERMS) <= set(metrics)
+        assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    after = model.state_dict()
+    for net in ("backbone", "attn", "root_net", "pose_net"):
+        assert any(not torch.equal(after[k], v) for k, v in before.items()
+                   if k.startswith(net + ".") and k.endswith("weight")), net
+    # no gradient to carry: the same losses sample PoseNet's cubes in one launch
+    start = dict(LAUNCHES)
+    with torch.no_grad():
+        model.ssv_losses(*branches, train_posenet_stage=True, use_l1_stage=True, generator=gen)
+    assert LAUNCHES["sample_view"] == start["sample_view"] + 2 * V
+    assert LAUNCHES["sample_view_adjoint"] == start["sample_view_adjoint"]
+    assert LAUNCHES["sample_views_mean"] == start["sample_views_mean"] + 1

@@ -211,13 +211,19 @@ def test_get_model_requires_cuda_unless_cpu_is_asked_for(monkeypatch):
 
 
 def test_get_model_cpu_flagship_modules_and_dtypes():
-    """The flagship model builds on the CPU at full width, bf16 convs with
-    float32 BatchNorm and output heads, TF32 off."""
+    """The flagship model builds on the CPU at full width: float32
+    parameters everywhere (an optimizer updates them), convolutions that
+    cast them to the bf16 compute dtype at use, TF32 off."""
     from selfpose3d_tpu_torch.config import flagship_cfg
 
     m = get_model(flagship_cfg(), device="cpu")
     assert not m.training
-    assert m.backbone.layer3[5].conv2.weight.dtype == torch.bfloat16
+    conv = m.backbone.layer3[5].conv2
+    assert conv.weight.dtype == torch.float32
+    assert m.backbone.dtype == m.pose_net.v2v_net.dtype == torch.bfloat16
+    x = torch.zeros(1, conv.in_channels, 4, 4, dtype=torch.bfloat16)
+    assert conv(x).dtype == torch.bfloat16
+    assert m.attn.backbone.layer4[1].conv2.out_channels == 512
     assert m.backbone.final_layer.weight.dtype == torch.float32
     assert m.backbone.bn1.running_var.dtype == torch.float32
     assert m.pose_net.v2v_net.output_layer.weight.dtype == torch.float32
