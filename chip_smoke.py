@@ -29,7 +29,17 @@ Phases, each printing one JSON line:
   7. kernels  each kernel at its main path's shapes and sample points (with
               seeded uniform heatmaps), held against its plain version,
               timed beside it, beside its bound, and beside one PyTorch
-              library call where one computes the same function.
+              library call where one computes the same function;
+  8. microbench  the three measurement probes (selfpose3d_tpu_torch/
+              microbench/: conv3, sw_variants, primitives) at their full
+              shapes, each probe's measurement driven with its kernel's
+              launch count set to 0 just before and read just after; then
+              each kernel held against its plain version on the same
+              inputs (conv3 within one bf16 ulp, the six slice-warp modes
+              1e-5 on the entries each defines, the four primitive bodies
+              exactly), the primitive kernel's time at 400 repetitions at
+              least 1.5 times its time at 200, and no module of JAX or of
+              the JAX package loaded.
 Then the kernels line, and last {"ok": true, "device": {...}}. Any failed
 check raises and the script exits non-zero. It needs a CUDA device and
 exits non-zero without one.
@@ -40,7 +50,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -55,6 +64,10 @@ from selfpose3d_tpu_torch.models import get_model  # noqa: E402
 from selfpose3d_tpu_torch.models.multi_person import cat_branches  # noqa: E402
 from selfpose3d_tpu_torch.train import create_train_state, make_ssv_train_step  # noqa: E402
 from selfpose3d_tpu_torch.geometry.grid import compute_grid  # noqa: E402
+from selfpose3d_tpu_torch.microbench import conv3 as mb_conv3  # noqa: E402
+from selfpose3d_tpu_torch.microbench import primitives as mb_prim  # noqa: E402
+from selfpose3d_tpu_torch.microbench import sw_variants as mb_sw  # noqa: E402
+from selfpose3d_tpu_torch.microbench.common import card_line, cuda_ms  # noqa: E402
 from selfpose3d_tpu_torch.ops import build, slicewarp  # noqa: E402
 from selfpose3d_tpu_torch.ops.unproject import compute_sample_grid, to_pixels  # noqa: E402
 
@@ -139,53 +152,13 @@ def randomize(model, seed):
     return model
 
 
-def cuda_ms(fn, iters, warmup=2):
-    """Mean device time of one call, CUDA events around ``iters`` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def bound(bytes_moved, flops, peak=F32_FLOPS):
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def queued_kernel_bounds():
-    """Bounds of the TPU kernels not ported yet (measurement probes under
-    scripts/), from the shapes in their sources; nothing runs."""
-    rows = {}
-    # scripts/microbench_pallas_conv.py: k=3^3 SAME conv, bf16, 40 cubes of 64^3
-    for name, (bk, ci, co) in {"front_res_c1_16to32": (40, 16, 32),
-                               "skip_res1_32to32": (40, 32, 32)}.items():
-        vox = bk * 64 ** 3
-        ms, by = bound(2 * (vox * (ci + co) + 27 * ci * co), 2 * 27 * ci * co * vox, BF16_FLOPS)
-        rows[f"pallas_conv3 {name}"] = {"bound_ms": ms, "bound_by": by}
-    # scripts/microbench_sw_variants.py: the per-view sampler at B=4, J=15,
-    # 640 slices of 64x128 (padded) points, float32
-    b, j, pts = 4, 15, 640 * 64 * 128
-    ms, by = bound(4 * (b * j * 256 * 128 + 2 * b * pts + b * pts * j), b * pts * (8 * j + 12))
-    rows["make_kernel (slice-warp forward variants)"] = {"bound_ms": ms, "bound_by": by}
-    # scripts/microbench.py: 200 repetitions of one primitive on one
-    # (256, 128) float32 tile that never leaves on-chip memory: the tile in
-    # and out once, about 3 operations an element and repetition
-    ms, by = bound(4 * 2 * 256 * 128, 200 * 256 * 128 * 3)
-    rows["bench_kernel (primitive x 200 on a 256x128 tile)"] = {"bound_ms": ms, "bound_by": by}
-    emit({"phase": "queued_kernel_bounds", "bounds": rows})
-
-
 def phase_card():
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line()
     print(smi, flush=True)
     t0 = time.perf_counter()
     built = build.build()
@@ -580,6 +553,152 @@ def phase_kernels(model, br, gc, launches, train_model, train_brs, train_launche
     return rows
 
 
+def _headline(name, source, replaces, launches, variants, head, **extra):
+    """A kernels-line row: the numbers of the variant ``head``, the largest
+    error over all variants, every variant beside them."""
+    h = variants[head]
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": max(v["max_abs_err"] for v in variants.values()),
+            **{k: h[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "headline": head, **extra, "variants": variants}
+
+
+def microbench_conv3():
+    """conv3 at the probe's two shapes: the probe's measure() with the
+    launch count set to 0 before and read after, then the kernel against
+    its plain version on the same inputs (within one bf16 ulp, >= 99 %
+    equal)."""
+    variants, launches = {}, 0
+    for i, name in enumerate(mb_conv3.SHAPES):
+        x, w = mb_conv3.make_inputs(name, "cuda", seed=i)
+        mb_conv3.reset_launches()
+        res = mb_conv3.measure(name, x, w)
+        torch.cuda.synchronize()
+        n = mb_conv3.LAUNCHES["conv3"]
+        launches += n
+        got = mb_conv3.conv3(x, w).float()
+        want = mb_conv3.conv3_plain(x, w).float()
+        diff = (got - want).abs()
+        ulps = float((diff / mb_conv3.bf16_ulp(torch.maximum(got.abs(), want.abs()))).max())
+        equal = float((diff == 0).float().mean())
+        err = float(diff.max())
+        del got, want, diff, x, w
+        torch.cuda.empty_cache()
+        assert ulps <= 1.0 and equal >= 0.99, (name, ulps, equal)
+        bk, ci, co = mb_conv3.SHAPES[name]
+        vox = bk * mb_conv3.EDGE ** 3
+        # bytes: input and output once (bf16), weights once; operations:
+        # 2 * 27 * CI * CO a voxel at the bf16 tensor-core rate
+        bms, by = bound(2 * (vox * (ci + co) + 27 * ci * co), 2 * 27 * ci * co * vox, BF16_FLOPS)
+        variants[name] = {
+            "shape": [bk, *(mb_conv3.EDGE,) * 3, ci, co], "launches": n, "max_abs_err": err,
+            "max_err_in_bf16_ulps": ulps, "equal_share": equal,
+            "relerr_vs_f32_conv3d_on_x[:1,:16]": res[f"{name}_relerr"],
+            "ms": res[f"{name}_kernel_ms"], "plain_ms": res[f"{name}_plain_ms"],
+            "library_ms": res[f"{name}_cudnn_ms"], "bound_ms": bms, "bound_by": by}
+    return _headline(
+        "conv3", "selfpose3d_tpu_torch/csrc/conv3.cu",
+        "scripts/microbench_pallas_conv.py:29 (_kernel, called by pallas_conv3 :73)",
+        launches, variants, "skip_res1_32to32",
+        library="F.conv3d (cuDNN, bf16, channels-last-3d)")
+
+
+def microbench_sw_variants():
+    """The six slice-warp modes at the probe's shapes, each measured with
+    the launch count set to 0 before and read after, then held against the
+    plain version (1e-5; j1 on channel 0, the only one it writes)."""
+    hm, xs, ys = mb_sw.make_inputs("cuda")
+    variants, launches = {}, 0
+    B, J, Wp, Hp = hm.shape
+    pts = xs.numel() // B
+    xs_shape = list(xs.shape)
+    for mode in mb_sw.MODES:
+        mb_sw.reset_launches()
+        res = mb_sw.measure(mode, hm, xs, ys)
+        torch.cuda.synchronize()
+        n = mb_sw.LAUNCHES["sw_variant"]
+        launches += n
+        ch = slice(0, 1) if mode == "j1" else slice(None)
+        err = float((mb_sw.sw_variant(mode, hm, xs, ys)[:, :, :, ch]
+                     - mb_sw.sw_variant_plain(mode, hm, xs, ys)[:, :, :, ch]).abs().max())
+        torch.cuda.empty_cache()
+        assert err <= 1e-5, (mode, err)
+        nch = 1 if mode == "j1" else J
+        # bytes: the planes read, xs and ys once, the written channels once
+        # (f32); operations: about 8 a point and channel and 12 a point
+        bms, by = bound(4 * (B * nch * Wp * Hp + 2 * B * pts + B * pts * nch),
+                        B * pts * (8 * nch + 12))
+        variants[mode] = {"launches": n, "max_abs_err": err, "ms": res[f"{mode}_ms"],
+                          "plain_ms": res[f"{mode}_plain_ms"], "library_ms": None,
+                          "bound_ms": bms, "bound_by": by}
+    del hm, xs, ys
+    torch.cuda.empty_cache()
+    return _headline(
+        "sw_variant", "selfpose3d_tpu_torch/csrc/sw_variants.cu",
+        "scripts/microbench_sw_variants.py:21 (make_kernel)", launches, variants, "full",
+        library="none: no one PyTorch call computes the column-hosted sampler",
+        shapes={"hm": [B, J, Wp, Hp], "xs": xs_shape})
+
+
+# operations a repetition does on one output element
+PRIMITIVE_OPS = {"gather": 4, "transpose": 1, "cmp_add": 2, "transpose_64x256": 1}
+
+
+def microbench_primitives():
+    """Parts A-C of the primitives probe (V2V bf16 and f32, the feats
+    transpose, soft-argmax; no kernel of the port), then each body at
+    REPS: measured with the launch count set to 0 before and read after,
+    held exactly to its plain version, and timed at 200 and 400
+    repetitions (the kernel must really repeat)."""
+    parts = mb_prim.measure_posenet_parts("cuda", iters=3)
+    torch.cuda.empty_cache()
+    variants, launches = {}, 0
+    reps = mb_prim.REPS
+    for i, (body, (shape_in, shape_out, key)) in enumerate(mb_prim.BODIES.items()):
+        x = mb_prim.make_input(body, "cuda", seed=i)
+        mb_prim.reset_launches()
+        res = mb_prim.measure_body(body, x)
+        torch.cuda.synchronize()
+        n = mb_prim.LAUNCHES["primitive"]
+        launches += n
+        got = mb_prim.primitive(body, x, reps)
+        want = mb_prim.primitive_plain(body, x, reps)
+        assert torch.equal(got, want), body
+        t200 = cuda_ms(lambda: mb_prim.primitive(body, x, 200), 20)
+        t400 = cuda_ms(lambda: mb_prim.primitive(body, x, 400), 20)
+        assert t400 >= 1.5 * t200, (body, t200, t400)
+        elems_in, elems_out = shape_in[0] * shape_in[1], shape_out[0] * shape_out[1]
+        written = elems_out // 2 if body == "transpose_64x256" else elems_out
+        bms, by = bound(4 * (elems_in + elems_out), reps * written * PRIMITIVE_OPS[body])
+        lib = res[f"{key}_library_us_per_op"]
+        variants[body] = {
+            "launches": n, "max_abs_err": float((got - want).abs().max()),
+            "us_per_op": res[f"{key}_us_per_op"],
+            "ms": res[f"{key}_us_per_op"] * reps / 1e3,
+            "plain_ms": res[f"{key}_plain_us_per_op"] * reps / 1e3,
+            "library_ms": None if lib is None else lib * reps / 1e3,
+            "bound_ms": bms, "bound_by": by, "ms_200_reps": t200, "ms_400_reps": t400}
+    return _headline(
+        "primitive", "selfpose3d_tpu_torch/csrc/microbench_primitives.cu",
+        "scripts/microbench.py:99 (bench_kernel)", launches, variants, "transpose",
+        reps=reps, library="per repetition: torch.add(a.t(), i, out=...) (transposes), "
+        "torch.gather with its index built before (gather); none for cmp_add",
+        posenet_parts_ms=parts)
+
+
+def phase_microbench():
+    """The three probes; returns their kernels-line rows."""
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "flax", "selfpose3d_tpu"))
+    assert not loaded, loaded
+    rows = [microbench_conv3(), microbench_sw_variants(), microbench_primitives()]
+    emit({"phase": "microbench", "rows": [
+        {k: r[k] for k in ("name", "launches", "max_abs_err", "ms", "plain_ms", "library_ms",
+                           "bound_ms", "headline")} for r in rows]})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -592,7 +711,9 @@ def main() -> int:
     train_model, train_brs, train_launches = phase_train()
     phase_train_parity()
     rows = phase_kernels(model, br, gc, launches, train_model, train_brs, train_launches)
-    queued_kernel_bounds()
+    del model, br, gc, train_model, train_brs
+    torch.cuda.empty_cache()
+    rows += phase_microbench()
     for row in rows:
         assert row["launches"] > 0, row["name"]
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 3)})

@@ -15,6 +15,8 @@ to find, and it imports nothing of JAX or of ``selfpose3d_tpu``:
   train/      train state (Adam/SGD, frozen sub-networks), LR schedule,
               the SSV train step
   convert/    JAX parameter (or gradient) trees -> this package's state dicts
+  microbench/ the measurement probes (3D conv, slice-warp variants,
+              primitive rates), each with its CUDA kernel
   csrc/       CUDA C++ sources, built with nvcc at first use
 
 Entry points run on the card unless the caller passes ``device="cpu"``.

@@ -17,7 +17,7 @@ from selfpose3d_tpu_torch.ops.slicewarp import (
     sample_views_mean,
     sample_views_mean_plain,
 )
-from selfpose3d_tpu_torch.ops.softargmax import soft_argmax_ndhwc
+from selfpose3d_tpu_torch.ops.softargmax import soft_argmax, soft_argmax_ndhwc
 from selfpose3d_tpu_torch.ops.unproject import (
     compute_sample_grid,
     sample_cubes,
@@ -43,6 +43,7 @@ __all__ = [
     "sample_view_plain",
     "sample_views_mean",
     "sample_views_mean_plain",
+    "soft_argmax",
     "soft_argmax_ndhwc",
     "compute_sample_grid",
     "sample_cubes",

@@ -5,7 +5,8 @@ a shared library with a plain C interface and loaded with ``ctypes``. The
 library's file name carries a hash of its source, so a changed source is
 rebuilt and an unchanged one is reused. Builds go to ``build/kernels/``
 at the repository root (listed in ``.gitignore``) and happen at first
-use; ``build()`` starts one ``nvcc`` per source, all at once.
+use; ``build()`` starts one ``nvcc`` per source, all at once. A source
+may add flags of its own (``EXTRA_FLAGS``); they are part of the hash.
 """
 
 from __future__ import annotations
@@ -22,12 +23,15 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("slicewarp",)
+SOURCES = ("slicewarp", "conv3", "sw_variants", "microbench_primitives")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# per-source flags: sw_variants floors interpolated rows, so a*b + c must
+# round twice, as the reference computes it, and not once as an FMA
+EXTRA_FLAGS = {"sw_variants": ("-fmad=false",)}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: every pointer and the stream as c_void_p, sizes as c_int
@@ -37,6 +41,11 @@ SIGNATURES = {
         "sp3d_sample_views_mean": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
         "sp3d_sample_view_adjoint": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
+    "conv3": {"sp3d_conv3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
+    "sw_variants": {
+        "sp3d_sw_variant": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    },
+    "microbench_primitives": {"sp3d_primitive": [_P, _P, _I, _I, _P]},
 }
 
 
@@ -58,9 +67,13 @@ def nvcc() -> str:
     )
 
 
+def flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    digest = hashlib.sha1(src + " ".join(flags(name)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -81,7 +94,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
             result[name] = {"seconds": 0.0, "log": log.read_text() if log.exists() else ""}
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             time.perf_counter(), tmp, out,

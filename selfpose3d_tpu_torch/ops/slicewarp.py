@@ -25,6 +25,7 @@ from typing import Tuple
 
 import torch
 
+from selfpose3d_tpu_torch.device import kernel_route
 from selfpose3d_tpu_torch.ops import build
 from selfpose3d_tpu_torch.ops.sampling import bilinear_sample as sample_view_plain
 
@@ -64,23 +65,6 @@ def _check(name, t, shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if t.dtype != torch.float32:
         raise TypeError(f"{name}: dtype {t.dtype}, expected float32")
-
-
-def _route(tensors) -> bool:
-    """True for the kernel (all CUDA, contiguous, one device), False for the
-    plain version (all CPU); raises on anything else."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"inputs on several devices: {sorted(map(str, devices))}")
-    dev = devices.pop()
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    for t in tensors:
-        if not t.is_contiguous():
-            raise ValueError("the CUDA samplers take contiguous tensors")
-    return True
 
 
 def sample_view_adjoint_plain(
@@ -142,7 +126,7 @@ def sample_view_adjoint(
     _check("py", py, (B, N))
     if J > MAX_CHANNELS:
         raise ValueError(f"J={J} > {MAX_CHANNELS}")
-    if not _route((g, px, py)):
+    if not kernel_route((g, px, py)):
         return sample_view_adjoint_plain(g, px, py, (H, W))
     lib = build.library("slicewarp")
     dhm = torch.zeros((B, H, W, J), dtype=torch.float32, device=g.device)
@@ -165,7 +149,7 @@ def _sample_view_forward(hm: torch.Tensor, px: torch.Tensor, py: torch.Tensor) -
     _check("py", py, (B, N))
     if J > MAX_CHANNELS:
         raise ValueError(f"J={J} > {MAX_CHANNELS}")
-    if not _route((hm, px, py)):
+    if not kernel_route((hm, px, py)):
         return sample_view_plain(hm, px, py)
     lib = build.library("slicewarp")
     out = torch.empty((B, N, J), dtype=torch.float32, device=hm.device)
@@ -241,7 +225,7 @@ def sample_views_mean(
             "sample_views_mean is inference-only (no backward): sample each "
             "view with sample_view where a gradient is needed"
         )
-    if not _route((hm, px, py, bnd)):
+    if not kernel_route((hm, px, py, bnd)):
         return sample_views_mean_plain(hm, px, py, bnd, out_dtype)
     lib = build.library("slicewarp")
     out = torch.empty((B, N, J), dtype=out_dtype, device=hm.device)

@@ -5,6 +5,20 @@ from __future__ import annotations
 import torch
 
 
+def soft_argmax(x: torch.Tensor, grids: torch.Tensor, beta: float = 100.0) -> torch.Tensor:
+    """Channel-major soft-argmax (the JAX package's ``soft_argmax``).
+
+    Args:
+      x: (..., J, N) per-joint voxel scores (N = X*Y*Z flattened).
+      grids: (..., N, 3) world coordinates of each voxel, shared by the joints.
+      beta: softmax temperature.
+    Returns:
+      (..., J, 3) expected world position per joint, float32.
+    """
+    w = torch.softmax(beta * x.to(torch.float32), dim=-1)
+    return w @ grids.to(torch.float32)
+
+
 def soft_argmax_ndhwc(x: torch.Tensor, axes, beta: float = 100.0) -> torch.Tensor:
     """Separable soft-argmax over a (B, X, Y, Z, J) score volume, float32.
 

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from selfpose3d_tpu_torch.microbench import conv3, primitives, sw_variants
 from selfpose3d_tpu_torch.ops import build
 from selfpose3d_tpu_torch.ops.slicewarp import (
     LAUNCHES,
@@ -211,3 +212,73 @@ def test_train_step_on_card_moves_every_network(cuda):
     assert LAUNCHES["sample_view"] == start["sample_view"] + 2 * V
     assert LAUNCHES["sample_view_adjoint"] == start["sample_view_adjoint"]
     assert LAUNCHES["sample_views_mean"] == start["sample_views_mean"] + 1
+
+
+@pytest.mark.parametrize("shape, co", [((2, 8, 12, 16, 16), 32), ((1, 5, 7, 32, 32), 16),
+                                       ((1, 4, 4, 16, 48), 128)])
+def test_conv3_kernel_matches_plain(cuda, shape, co):
+    """Within one bf16 ulp of the plain version (the same float32 products
+    summed in another order before the one rounding); odd X and Y edges."""
+    g = torch.Generator(device=cuda).manual_seed(co)
+    x = torch.rand(shape, generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.rand((3, 3, 3, shape[-1], co), generator=g, device=cuda) * 0.01).to(torch.bfloat16)
+    before = conv3.LAUNCHES["conv3"]
+    got = conv3.conv3(x, w).float()
+    torch.cuda.synchronize()
+    assert conv3.LAUNCHES["conv3"] == before + 1
+    want = conv3.conv3_plain(x, w).float()
+    diff = (got - want).abs()
+    assert bool((diff <= conv3.bf16_ulp(torch.maximum(got.abs(), want.abs()))).all())
+    assert float((diff == 0).float().mean()) >= 0.99
+    with pytest.raises(ValueError, match="multiples of 16"):
+        conv3.conv3(x[..., :8].contiguous(), w[:, :, :, :8].contiguous())
+
+
+@pytest.mark.parametrize("mode", sw_variants.MODES)
+def test_sw_variant_kernel_matches_plain(cuda, mode):
+    """All modes at the probe's row geometry on 2 x 16 slices, one row
+    reversed (sgn = -1) and one unsorted; 1e-5 absolute (j1: channel 0)."""
+    rng = np.random.default_rng(7)
+    Bn, J, S, SB = 2, 3, 16, 8
+    sh = (Bn, S // SB, SB, sw_variants.Xp, sw_variants.Yp)
+    hm = rng.random((Bn, J, sw_variants.Wp, sw_variants.Hp), dtype=np.float32)
+    xs = np.sort(rng.random(sh, dtype=np.float32) * np.float32(200), -1)
+    xs[1, 1, 2, 7] = xs[1, 1, 2, 7, ::-1]
+    xs[0, 0, 5, 3] = rng.permutation(xs[0, 0, 5, 3])
+    ys = rng.random(sh, dtype=np.float32) * np.float32(100)
+    hm, xs, ys = (torch.from_numpy(a).to(cuda) for a in (hm, xs, ys))
+    before = sw_variants.LAUNCHES["sw_variant"]
+    got = sw_variants.sw_variant(mode, hm, xs, ys)
+    torch.cuda.synchronize()
+    assert sw_variants.LAUNCHES["sw_variant"] == before + 1
+    want = sw_variants.sw_variant_plain(mode, hm, xs, ys)
+    ch = slice(0, 1) if mode == "j1" else slice(None)
+    torch.testing.assert_close(got[:, :, :, ch], want[:, :, :, ch], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("body", list(primitives.BODIES))
+def test_primitive_kernel_matches_plain(cuda, body):
+    for reps in (1, 5, 200):
+        x = primitives.make_input(body, cuda, seed=reps)
+        before = primitives.LAUNCHES["primitive"]
+        got = primitives.primitive(body, x, reps)
+        torch.cuda.synchronize()
+        assert primitives.LAUNCHES["primitive"] == before + 1
+        assert torch.equal(got, primitives.primitive_plain(body, x, reps)), (body, reps)
+
+
+def test_probe_kernels_raise_when_library_unbuilt(cuda, monkeypatch):
+    def unbuilt(name):
+        raise RuntimeError(f"lib{name} is not built")
+
+    monkeypatch.setattr(build, "library", unbuilt)
+    x = torch.zeros((1, 4, 4, 16, 16), dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros((3, 3, 3, 16, 16), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(RuntimeError, match="not built"):
+        conv3.conv3(x, w)
+    hm = torch.zeros((1, 1, sw_variants.Wp, sw_variants.Hp), device=cuda)
+    xs = torch.zeros((1, 1, 1, 2, sw_variants.Yp), device=cuda)
+    with pytest.raises(RuntimeError, match="not built"):
+        sw_variants.sw_variant("full", hm, xs, xs)
+    with pytest.raises(RuntimeError, match="not built"):
+        primitives.primitive("gather", primitives.make_input("gather", cuda), 2)
