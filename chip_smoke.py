@@ -6,7 +6,8 @@
 Phases, each printing one JSON line:
   1. card     nvidia-smi name and power limit, torch/CUDA versions, and the
               build of every CUDA kernel from csrc/ (one nvcc per source,
-              all started together);
+              all started together), with the registers, static shared
+              memory and spills of the redesigned kernels (REDESIGNED);
   2. main     flagship do_inference (ResNet-50, 5 x 960x512 views, 80x80x20
               root grid, 64^3 pose cubes, bf16, batch 8, random weights from
               a seed) on the synthetic scene: shapes, finite outputs, and
@@ -29,7 +30,10 @@ Phases, each printing one JSON line:
   7. kernels  each kernel at its main path's shapes and sample points (with
               seeded uniform heatmaps), held against its plain version,
               timed beside it, beside its bound, and beside one PyTorch
-              library call where one computes the same function;
+              library call where one computes the same function; the
+              adjoint also on a step-like cotangent (each of the five
+              views' launches with the rows of points outside that view's
+              image zeroed), and sample_view also at the train shapes;
   8. microbench  the three measurement probes (selfpose3d_tpu_torch/
               microbench/: conv3, sw_variants, primitives) at their full
               shapes, each probe's measurement driven with its kernel's
@@ -50,6 +54,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import sys
 import time
 
@@ -157,6 +162,39 @@ def bound(bytes_moved, flops, peak=F32_FLOPS):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+# the kernels redesigned for Hopper in the latest slice: the card phase
+# prints their registers, static shared memory and spills
+REDESIGNED = ("conv3_kernel", "sample_view_adjoint_kernel")
+
+
+def ptxas_figures(log, names=REDESIGNED):
+    """{kernel: {"registers", "smem_bytes" (static), "spill_stores",
+    "spill_loads"}} from an ``nvcc -Xptxas -v`` log, for the kernels whose
+    mangled name contains one of ``names`` (a template instance as
+    ``name<N>``; the dynamic shared memory a launch asks for is not in the
+    log: see the sources)."""
+    out, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            fn = next((n for n in names if n in m.group(1)), None)
+            t = fn and re.search(fn + r"I((?:Li\d+E)+)E", m.group(1))
+            fn = f"{fn}<{','.join(re.findall(r'Li(\d+)E', t.group(1)))}>" if t else fn
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out.setdefault(fn, {}).update(spill_stores=int(m.group(1)),
+                                          spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out.setdefault(fn, {}).update(registers=int(m.group(1)),
+                                          smem_bytes=int(smem.group(1)) if smem else 0)
+    return out
+
+
 def phase_card():
     smi = card_line()
     print(smi, flush=True)
@@ -171,7 +209,9 @@ def phase_card():
           "cuda": torch.version.cuda,
           "build_s": round(time.perf_counter() - t0, 3),
           "nvcc_s": {k: round(v["seconds"], 3) for k, v in built.items()},
-          "ptxas": ptxas})
+          "ptxas": ptxas,
+          "ptxas_redesigned": {fn: fig for info in built.values()
+                               for fn, fig in ptxas_figures(info["log"]).items()}})
 
 
 def phase_main():
@@ -487,11 +527,15 @@ def phase_kernels(model, br, gc, launches, train_model, train_brs, train_launche
     assert bool((gc_t[..., 3] >= 0).all())
     B2 = b12.batch_size
     grids = compute_grid(pn.grid_size, torch.cat([gc_t, gc_t])[..., :3], pn.cube_size)
-    sg, _ = compute_sample_grid(grids.reshape(B2, 1, -1, 3), b12.cam, b12.trans, pn.image_wh,
-                                (W, H), b12.orig_wh)
-    px, py = (t[:, 0].contiguous() for t in to_pixels(sg, (W, H)))
+    sg, inside = compute_sample_grid(grids.reshape(B2, 1, -1, 3), b12.cam, b12.trans,
+                                     pn.image_wh, (W, H), b12.orig_wh)
+    pxs, pys = to_pixels(sg, (W, H))  # (B2, V, N)
+    px, py = pxs[:, 0].contiguous(), pys[:, 0].contiguous()
     lib_grid = sg[:, 0, None].contiguous()  # (B2, 1, N, 2)
-    del sg, grids
+    # (px, py, grid_sample grid) of every view: a train step's five launches
+    per_view = [(pxs[:, v].contiguous(), pys[:, v].contiguous(), sg[:, v, None].contiguous())
+                for v in range(sg.shape[1])]
+    del sg, grids, pxs, pys
     N = px.shape[1]
     hm2 = torch.rand(B2, H, W, J, generator=g, device=px.device)
     cot = torch.rand(B2, N, J, generator=g, device=px.device)
@@ -517,19 +561,50 @@ def phase_kernels(model, br, gc, launches, train_model, train_brs, train_launche
     del samp
     # the dense cotangent is the worst case: in a train step the rows of
     # points outside the view's image are exactly zero and the kernel skips
-    # them (scripts/profile_torch_train.py times it on a step's own cotangent)
+    # them (scripts/profile_torch_train.py times it on a step's own
+    # cotangent); the step-like cotangent zeroes those rows here
     hm_nchw = hm2.permute(0, 3, 1, 2).contiguous().requires_grad_()
     lib_out = torch.nn.functional.grid_sample(hm_nchw, lib_grid, align_corners=True)
-    cot_lib = cot.permute(0, 2, 1)[:, :, None].contiguous()  # (B2, J, 1, N)
 
-    def lib_call():
-        return torch.autograd.grad(lib_out, hm_nchw, cot_lib, retain_graph=True)[0]
+    def lib_call(c):
+        c = c.permute(0, 2, 1)[:, :, None].contiguous()  # (B2, J, 1, N)
+        return lambda: torch.autograd.grad(lib_out, hm_nchw, c, retain_graph=True)[0]
 
-    lib_err = float((lib_call().permute(0, 2, 3, 1) - got).abs().max())
+    lib_err = float((lib_call(cot)().permute(0, 2, 3, 1) - got).abs().max())
+    # step-like: each view's launch on the same cotangent with the rows of
+    # the points outside that view's image zeroed, as a train step's are
+    steps = [(pv, qv, (cot * inside[:, v, :, None]).contiguous())
+             for v, (pv, qv, _) in enumerate(per_view)]
+    step_err, live = 0.0, int(inside.sum())
+    for pv, qv, cv in steps:
+        plain_v = slicewarp.sample_view_adjoint_plain(cv, pv, qv, (H, W))
+        err_v = float((slicewarp.sample_view_adjoint(cv, pv, qv, (H, W)) - plain_v).abs().max())
+        assert err_v <= 2e-5 * float(plain_v.abs().max()), ("adjoint step-like", err_v)
+        step_err = max(step_err, err_v)
+    del plain_v
+    step_lib_outs = [torch.nn.functional.grid_sample(hm_nchw, gv, align_corners=True)
+                     for _, _, gv in per_view]
+    step_cots = [cv.permute(0, 2, 1)[:, :, None].contiguous() for _, _, cv in steps]
+
+    def step_library():
+        return [torch.autograd.grad(o, hm_nchw, c, retain_graph=True)[0]
+                for o, c in zip(step_lib_outs, step_cots)]
+
+    with torch.no_grad():
+        hm_lib = hm2.permute(0, 3, 1, 2).contiguous()
+        fwd_lib = torch.nn.functional.grid_sample(hm_lib, lib_grid, align_corners=True)
+        fwd_lib_err = float((fwd_lib[:, :, 0].permute(0, 2, 1)
+                             - slicewarp.sample_view(hm2, px, py)).abs().max())
+        del fwd_lib
     # bytes: g, px, py read once, the heatmap gradient written once;
     # operations: 2 per tap and channel and 12 for the weights
     bms, by = bound(4 * (B2 * N * J + 2 * B2 * N + B2 * H * W * J), B2 * N * (8 * J + 12))
     fwd_bms, _ = bound(4 * (B2 * H * W * J + 2 * B2 * N + B2 * N * J), B2 * N * (8 * J + 12))
+    # step-like, V launches: every row of g is read (to find the zeros), the
+    # coordinates and operations only of the points inside each image
+    nv = len(steps)
+    step_bms, step_by = bound(4 * (nv * B2 * N * J + 2 * live + nv * B2 * H * W * J),
+                              live * (8 * J + 12))
     rows.append({
         "name": "sample_view_adjoint", "route": "cuda", "source": SOURCE,
         "replaces": "selfpose3d_tpu/ops/slicewarp.py:1162 (_slice_warp_adjoint_kernel)",
@@ -540,15 +615,29 @@ def phase_kernels(model, br, gc, launches, train_model, train_brs, train_launche
         "ms": cuda_ms(lambda: slicewarp.sample_view_adjoint(cot, px, py, (H, W)), 20),
         "plain_ms": cuda_ms(lambda: slicewarp.sample_view_adjoint_plain(cot, px, py, (H, W)), 3),
         "bound_ms": bms, "bound_by": by,
-        "library_ms": cuda_ms(lib_call, 10),
+        "library_ms": cuda_ms(lib_call(cot), 10),
         "library": "torch.autograd.grad of F.grid_sample(align_corners=True, "
                    "padding_mode='zeros') w.r.t. its input",
         "library_max_abs_err": lib_err,
         "shapes": {"g": list(cot.shape), "hm": list(hm2.shape)},
+        "step_like_cotangent": {
+            "launches": nv, "rows_nonzero_share": live / (nv * B2 * N),
+            "rows_nonzero_share_per_view": [float(inside[:, v].mean()) for v in range(nv)],
+            "max_abs_err": step_err,
+            "ms": cuda_ms(lambda: [slicewarp.sample_view_adjoint(cv, pv, qv, (H, W))
+                                   for pv, qv, cv in steps], 10),
+            "plain_ms": cuda_ms(lambda: [slicewarp.sample_view_adjoint_plain(cv, pv, qv, (H, W))
+                                         for pv, qv, cv in steps], 2),
+            "library_ms": cuda_ms(step_library, 5),
+            "bound_ms": step_bms, "bound_by": step_by},
         "forward_at_these_shapes": {
             "name": "sample_view", "max_abs_err": fwd_err, "bound_ms": fwd_bms,
             "ms": cuda_ms(lambda: slicewarp.sample_view(hm2, px, py), 20),
-            "plain_ms": cuda_ms(lambda: slicewarp.sample_view_plain(hm2, px, py), 3)},
+            "plain_ms": cuda_ms(lambda: slicewarp.sample_view_plain(hm2, px, py), 3),
+            "library_ms": cuda_ms(lambda: torch.nn.functional.grid_sample(
+                hm_lib, lib_grid, align_corners=True), 20),
+            "library": "F.grid_sample(align_corners=True, padding_mode='zeros')",
+            "library_max_abs_err": fwd_lib_err},
     })
     return rows
 

@@ -3,7 +3,8 @@
 
 ``conv3`` replaces the TPU kernel ``_kernel`` / ``pallas_conv3`` of that
 script (its im2col Pallas conv) with a hand-written CUDA kernel
-(``csrc/conv3.cu``: implicit GEMM on the tensor cores). It is a yardstick
+(``csrc/conv3.cu``: implicit GEMM on ``wgmma``, the weights repacked by
+``pack_weights`` into the kernel's shared-memory layout). It is a yardstick
 for the V2V's convolutions, which the port leaves to cuDNN as the JAX
 package leaves them to XLA: nothing on the inference or train path calls it.
 
@@ -60,6 +61,27 @@ def conv3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return acc.to(x.dtype)
 
 
+def pack_weights(w: torch.Tensor) -> torch.Tensor:
+    """DHWIO weights (3, 3, 3, CI, CO) -> (27*CI/16, 2, CO, 8), the layout
+    ``sp3d_conv3`` copies into shared memory: ``[k step][half][co][8]`` with
+    ``k step = tap*CI/16 + ci//16``, ``half = ci//8 % 2``, last axis
+    ``ci % 8``, ``tap = 9*dx + 3*dy + dz``. Each (k step, half, co) is one
+    16-byte row of the wgmma B operand (K-major, no swizzle)."""
+    CI, CO = w.shape[3], w.shape[4]
+    if CI % 16:
+        raise ValueError(f"pack_weights: CI={CI} is not a multiple of 16")
+    return (w.reshape(27, CI // 16, 2, 8, CO).permute(0, 1, 2, 4, 3)
+            .reshape(27 * CI // 16, 2, CO, 8).contiguous())
+
+
+def unpack_weights(p: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``pack_weights``: (27*CI/16, 2, CO, 8) -> (3, 3, 3, CI, CO)."""
+    ks, _, CO, _ = p.shape
+    C16 = ks // 27
+    return (p.reshape(27, C16, 2, CO, 8).permute(0, 1, 2, 4, 3)
+            .reshape(3, 3, 3, 16 * C16, CO).contiguous())
+
+
 def conv3_library(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """cuDNN's ``F.conv3d`` on the same NDHWC input (as an NCDHW view with
     channels-last-3d strides) and DHWIO weights; NDHWC out. Timed beside the
@@ -76,8 +98,9 @@ def conv3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
       w: (3, 3, 3, CI, CO) bfloat16, DHWIO.
     Returns:
       (B, X, Y, Z, CO) bfloat16: every product and the 27*CI-term sum in
-      float32, one rounding at the end. The CUDA kernel takes CI, CO and Z
-      multiples of 16 and CO in (16, 32, 64, 128).
+      float32, one rounding at the end. The CUDA kernel takes CI and Z
+      multiples of 16 and CO in (16, 32, 64, 128), where its window and
+      weight slice fit in shared memory (CI <= 64 at Z = 64).
     """
     B, X, Y, Z, CI = x.shape
     if tuple(w.shape[:4]) != (3, 3, 3, CI) or w.dim() != 5:
@@ -91,12 +114,13 @@ def conv3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if CI % 16 or Z % 16 or CO not in (16, 32, 64, 128):
         raise ValueError(f"the CUDA conv3 takes CI, Z multiples of 16 and CO in "
                          f"(16, 32, 64, 128); got CI={CI}, Z={Z}, CO={CO}")
-    if x.data_ptr() % 16 or w.data_ptr() % 32:
-        raise ValueError("the CUDA conv3 takes 16-byte-aligned x and 32-byte-aligned w")
+    if x.data_ptr() % 16:
+        raise ValueError("the CUDA conv3 takes a 16-byte-aligned x")
     lib = build.library("conv3")
     out = torch.empty((B, X, Y, Z, CO), dtype=torch.bfloat16, device=x.device)
+    wp = pack_weights(w)
     with torch.cuda.device(x.device):
-        err = lib.sp3d_conv3(x.data_ptr(), w.data_ptr(), out.data_ptr(), B, X, Y, Z, CI, CO,
+        err = lib.sp3d_conv3(x.data_ptr(), wp.data_ptr(), out.data_ptr(), B, X, Y, Z, CI, CO,
                              torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"sp3d_conv3 launch failed: CUDA error {err}")

@@ -60,6 +60,44 @@ def test_adjoint_plain_matches_jax_scatter_backward(J):
     assert np.abs(want).max() > 1.0
 
 
+def _case_coords(case, B, S, X, Y, H, W):
+    """Pixel coordinates of the card kernel's branches, on the CPU: every
+    point in one texel; consecutive points sweeping across the image's
+    left and right edges; a zero cotangent on every other block of 7."""
+    n = np.arange(S * X * Y, dtype=np.float32)
+    if case == "one_texel":
+        px, py = np.full_like(n, 3.3), np.full_like(n, 2.6)
+    else:
+        u = (n % 16) / 16
+        run = n // 16
+        px = np.where(run % 2 == 0, -3 + 6 * u, W - 3 + 6 * u)
+        py = run % (H + 4) - 2 + 0.25 * u
+    return (np.broadcast_to(px, (B, px.size)).astype(np.float32).copy(),
+            np.broadcast_to(py, (B, py.size)).astype(np.float32).copy())
+
+
+@pytest.mark.parametrize("case", ["one_texel", "edges", "half_zero"])
+def test_adjoint_plain_matches_jax_scatter_backward_cases(case):
+    """The plain adjoint (what the kernel is held to) against the JAX
+    package's scatter backward on the point patterns that pick the card
+    kernel's branches."""
+    B, S, X, Y, H, W, J = 2, 3, 8, 10, 12, 20, 15  # the shapes above: one JAX compile
+    px, py = _case_coords(case, B, S, X, Y, H, W)
+    g = np.random.RandomState(7).randn(B, S * X * Y, J).astype(np.float32)
+    if case == "half_zero":
+        g[:, (np.arange(S * X * Y) // 7) % 2 == 0] = 0.0
+    xs, ys = (jnp.asarray(a.reshape(B, S, X, Y)) for a in (px, py))
+    g_j = jnp.asarray(g.reshape(B, S, X, Y, J).transpose(0, 1, 4, 2, 3))
+    res = (jnp.zeros((0, H, W, J), jnp.float32), xs, ys,
+           jnp.zeros((B, S), jnp.int32), jnp.ones((B, S, X, Y), jnp.float32))
+    want = np.asarray(sw._slice_warp_bwd(res, (g_j, None))[0])
+    got = sample_view_adjoint(torch.from_numpy(g), torch.from_numpy(px), torch.from_numpy(py),
+                              (H, W))
+    # float32 sums of up to 4*240 terms into one texel: 1e-6 of the peak
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6 * np.abs(want).max())
+    assert np.abs(want).max() > 1.0
+
+
 @pytest.mark.parametrize("J", [1, 15])
 def test_sample_view_backward_matches_jax_grad_of_exact_gather(J):
     """loss = <sample(hm), g>: d loss / d hm through the port's

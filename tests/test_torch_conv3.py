@@ -77,3 +77,35 @@ def test_conv3_rejects_what_it_does_not_take():
     port.conv3(x, w)  # the CPU runs the plain version: no launch
     assert port.LAUNCHES == before
 
+
+
+@pytest.mark.parametrize("ci, co", [(16, 32), (32, 32), (48, 16), (64, 128)])
+def test_pack_weights_round_trip(ci, co):
+    """The kernel's weight layout loses nothing: unpack(pack(w)) is w."""
+    _, w = _inputs(ci + co, (1, 1, 1, 1, ci), co)
+    p = port.pack_weights(w)
+    assert tuple(p.shape) == (27 * ci // 16, 2, co, 8) and p.is_contiguous()
+    assert torch.equal(port.unpack_weights(p), w)
+
+
+def test_pack_weights_index_formula():
+    """Every element where the kernel's B layout expects it:
+    p[tap*CI/16 + ci//16, ci//8 % 2, co, ci % 8] = w[dx, dy, dz, ci, co]
+    with tap = 9*dx + 3*dy + dz (a numpy loop over all indices)."""
+    ci, co = 32, 16
+    w = np.random.default_rng(1).random((3, 3, 3, ci, co), dtype=np.float32)
+    p = port.pack_weights(torch.from_numpy(w)).numpy()
+    want = np.empty_like(p)
+    for dx in range(3):
+        for dy in range(3):
+            for dz in range(3):
+                tap = 9 * dx + 3 * dy + dz
+                for c in range(ci):
+                    for o in range(co):
+                        want[tap * ci // 16 + c // 16, c // 8 % 2, o, c % 8] = w[dx, dy, dz, c, o]
+    np.testing.assert_array_equal(p, want)
+
+
+def test_pack_weights_rejects_ci_not_multiple_of_16():
+    with pytest.raises(ValueError, match="multiple of 16"):
+        port.pack_weights(torch.zeros((3, 3, 3, 8, 16), dtype=torch.bfloat16))

@@ -234,6 +234,80 @@ def test_conv3_kernel_matches_plain(cuda, shape, co):
         conv3.conv3(x[..., :8].contiguous(), w[:, :, :, :8].contiguous())
 
 
+# (CI, Z): Z = 48 leaves a partial 64-voxel tile a row, Z = 32 half a tile
+CONV3_Z = {16: 48, 32: 64, 64: 32}
+
+
+@pytest.mark.parametrize("ci", [16, 32, 64])
+@pytest.mark.parametrize("co", [16, 32, 64, 128])
+def test_conv3_kernel_channel_grid(cuda, ci, co):
+    """Every CO the kernel takes against CI 16, 32 and 64 at B = 1: Y = 5 is
+    not a multiple of any step's rows, and the input is nonzero on every
+    face of the volume (x in [0.5, 1.5)), so every zero-filled halo tap
+    counts; within one bf16 ulp of the plain version, >= 99 % equal."""
+    g = torch.Generator(device=cuda).manual_seed(ci * 1000 + co)
+    shape = (1, 3, 5, CONV3_Z[ci], ci)
+    x = (torch.rand(shape, generator=g, device=cuda) + 0.5).to(torch.bfloat16)
+    w = (torch.rand((3, 3, 3, ci, co), generator=g, device=cuda) * 0.01).to(torch.bfloat16)
+    before = conv3.LAUNCHES["conv3"]
+    got = conv3.conv3(x, w).float()
+    torch.cuda.synchronize()
+    assert conv3.LAUNCHES["conv3"] == before + 1
+    want = conv3.conv3_plain(x, w).float()
+    diff = (got - want).abs()
+    assert bool((diff <= conv3.bf16_ulp(torch.maximum(got.abs(), want.abs()))).all())
+    assert float((diff == 0).float().mean()) >= 0.99
+
+
+def _adjoint_case(case, g, B, N, H, W, J, dev):
+    """Coordinates and cotangent of one adjoint scenario (see the test)."""
+    n = torch.arange(N, device=dev, dtype=torch.float32).expand(B, N)
+    if case == "one_texel":
+        px, py = torch.full((B, N), 10.3, device=dev), torch.full((B, N), 5.7, device=dev)
+    elif case == "edge":
+        u = (n % 512) / 512
+        run = torch.div(n, 512, rounding_mode="floor")
+        px = torch.where(run % 2 == 0, -6 + 12 * u, W - 6 + 12 * u)
+        py = run % (H + 8) - 4 + 0.25 * u
+    else:  # spread over the whole image and around it
+        px = torch.rand(B, N, generator=g, device=dev) * (W + 4) - 2
+        py = torch.rand(B, N, generator=g, device=dev) * (H + 4) - 2
+    cot = torch.randn(B, N, J, generator=g, device=dev)
+    if case == "all_zero":
+        cot.zero_()
+    elif case == "half_zero":
+        cot[(torch.div(n, 700, rounding_mode="floor") % 2 == 0)] = 0.0
+    return px.contiguous(), py.contiguous(), cot
+
+
+@pytest.mark.parametrize("J", [1, 3, 15, 32])
+@pytest.mark.parametrize("case", ["one_texel", "spread", "edge", "all_zero", "half_zero"])
+def test_sample_view_adjoint_kernel_cases(cuda, case, J):
+    """The adjoint's branches: every point in one texel (the worst
+    contention, one private tile), points spread over the whole image (the
+    boxes do not fit: the direct path), runs that cross the image's edges,
+    an all-zero cotangent (every run exits after its read) and one zero on
+    every other 700 points (runs half zero). Against the float64 plain
+    version (1e-5 of the largest gradient) and the inner-product identity
+    (1e-5 relative)."""
+    g = torch.Generator(device=cuda).manual_seed(J)
+    B, N, H, W = 2, 50_000, 128, 240
+    px, py, cot = _adjoint_case(case, g, B, N, H, W, J, cuda)
+    before = LAUNCHES["sample_view_adjoint"]
+    got = sample_view_adjoint(cot, px, py, (H, W))
+    torch.cuda.synchronize()
+    assert LAUNCHES["sample_view_adjoint"] == before + 1
+    want = sample_view_adjoint_plain(cot.double(), px, py, (H, W))
+    if case == "all_zero":
+        assert not bool(got.any())
+        return
+    torch.testing.assert_close(got.double(), want, rtol=0, atol=1e-5 * float(want.abs().max()))
+    hm = torch.rand(B, H, W, J, generator=g, device=cuda)
+    lhs = float((sample_view(hm, px, py).double() * cot.double()).sum())
+    rhs = float((hm.double() * got.double()).sum())
+    assert abs(lhs - rhs) <= 1e-5 * abs(lhs)
+
+
 @pytest.mark.parametrize("mode", sw_variants.MODES)
 def test_sw_variant_kernel_matches_plain(cuda, mode):
     """All modes at the probe's row geometry on 2 x 16 slices, one row
