@@ -30,10 +30,13 @@ Phases, each printing one JSON line:
   7. kernels  each kernel at its main path's shapes and sample points (with
               seeded uniform heatmaps), held against its plain version,
               timed beside it, beside its bound, and beside one PyTorch
-              library call where one computes the same function; the
-              adjoint also on a step-like cotangent (each of the five
-              views' launches with the rows of points outside that view's
-              image zeroed), and sample_view also at the train shapes;
+              library call where one computes the same function (for
+              sample_views_mean, which none computes, F.grid_sample's time
+              for the sampling part alone); the adjoint also on a
+              step-like cotangent (each of the five views' launches with
+              the rows of points outside that view's image zeroed), and
+              sample_view also at the train shapes, one view and the five
+              of a train step;
   8. microbench  the three measurement probes (selfpose3d_tpu_torch/
               microbench/: conv3, sw_variants, primitives) at their full
               shapes, each probe's measurement driven with its kernel's
@@ -162,24 +165,32 @@ def bound(bytes_moved, flops, peak=F32_FLOPS):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-# the kernels redesigned for Hopper in the latest slice: the card phase
-# prints their registers, static shared memory and spills
-REDESIGNED = ("conv3_kernel", "sample_view_adjoint_kernel")
+# the kernels redesigned for Hopper (conv3, the adjoint, the forward
+# samplers and their channel padding): the card phase prints their
+# registers, static shared memory and spills
+REDESIGNED = ("conv3_kernel", "sample_view_adjoint_kernel", "sample_views_kernel",
+              "sample_view_j1_kernel", "sample_view_pad_kernel")
+# template arguments as they appear mangled: integers, booleans, types
+MANGLED_ARG = r"L[ib](\d+)E|f|13__nv_bfloat16"
+MANGLED_TYPES = {"f": "float", "13__nv_bfloat16": "bf16"}
 
 
 def ptxas_figures(log, names=REDESIGNED):
     """{kernel: {"registers", "smem_bytes" (static), "spill_stores",
     "spill_loads"}} from an ``nvcc -Xptxas -v`` log, for the kernels whose
     mangled name contains one of ``names`` (a template instance as
-    ``name<N>``; the dynamic shared memory a launch asks for is not in the
-    log: see the sources)."""
+    ``name<N>`` or ``name<type>``; the dynamic shared memory a launch asks
+    for is not in the log: see the sources)."""
     out, fn = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            fn = next((n for n in names if n in m.group(1)), None)
-            t = fn and re.search(fn + r"I((?:Li\d+E)+)E", m.group(1))
-            fn = f"{fn}<{','.join(re.findall(r'Li(\d+)E', t.group(1)))}>" if t else fn
+            fn = next((n for n in names if re.search(r"\d" + n + "(I|E|P)", m.group(1))), None)
+            t = fn and re.search(fn + r"I((?:" + MANGLED_ARG + r")+)E", m.group(1))
+            if t:
+                args = [a.group(1) or MANGLED_TYPES[a.group(0)]
+                        for a in re.finditer(MANGLED_ARG, t.group(1))]
+                fn = f"{fn}<{','.join(args)}>"
             continue
         if fn is None:
             continue
@@ -504,6 +515,14 @@ def phase_kernels(model, br, gc, launches, train_model, train_brs, train_launche
     assert err32 <= 1e-5, ("sample_views_mean f32", err32)
     bms, by = bound(4 * (B * V * H * W * J + 3 * B * V * N) + 2 * B * N * J,
                     B * N * (V * (8 * J + 12) + 3 * J))
+    # no one library call takes the bounded view mean; F.grid_sample over
+    # every view's heatmap takes the sampling part alone
+    hm_views = hm.reshape(B * V, H, W, J).permute(0, 3, 1, 2)
+    grid_views = torch.stack([px / (W - 1) * 2 - 1, py / (H - 1) * 2 - 1], -1).reshape(
+        B * V, 1, N, 2)
+    sampling_ms = cuda_ms(lambda: torch.nn.functional.grid_sample(
+        hm_views, grid_views, align_corners=True), 5)
+    del hm_views, grid_views
     rows.append({
         "name": "sample_views_mean", "route": "cuda", "source": SOURCE,
         "replaces": "selfpose3d_tpu/ops/slicewarp.py:664 (_slice_warp_agg_kernel)",
@@ -513,6 +532,10 @@ def phase_kernels(model, br, gc, launches, train_model, train_brs, train_launche
         "plain_ms": cuda_ms(lambda: slicewarp.sample_views_mean_plain(hm, px, py, bnd, out), 3),
         "bound_ms": bms, "bound_by": by,
         "library_ms": None,
+        "library_sampling_only_ms": sampling_ms,
+        "library_sampling_only": "F.grid_sample(align_corners=True, padding_mode='zeros') over "
+                                 "the (B*V, J, H, W) heatmaps, grid (B*V, 1, N, 2): the "
+                                 "sampling alone, not the bounded mean (f32 out)",
         "shapes": {"hm": list(hm.shape), "points": [B, V, N], "candidates": k, "out": "bf16"},
     })
     del px, py, bnd, hm
@@ -559,6 +582,10 @@ def phase_kernels(model, br, gc, launches, train_model, train_brs, train_launche
     fwd_err = float((samp - slicewarp.sample_view_plain(hm2, px, py)).abs().max())
     assert fwd_err <= 1e-5, ("sample_view J=15", fwd_err)
     del samp
+    five_err = max(float((slicewarp.sample_view(hm2, pv, qv)
+                          - slicewarp.sample_view_plain(hm2, pv, qv)).abs().max())
+                   for pv, qv, _ in per_view)
+    assert five_err <= 1e-5, ("sample_view J=15, five views", five_err)
     # the dense cotangent is the worst case: in a train step the rows of
     # points outside the view's image are exactly zero and the kernel skips
     # them (scripts/profile_torch_train.py times it on a step's own
@@ -637,7 +664,15 @@ def phase_kernels(model, br, gc, launches, train_model, train_brs, train_launche
             "library_ms": cuda_ms(lambda: torch.nn.functional.grid_sample(
                 hm_lib, lib_grid, align_corners=True), 20),
             "library": "F.grid_sample(align_corners=True, padding_mode='zeros')",
-            "library_max_abs_err": fwd_lib_err},
+            "library_max_abs_err": fwd_lib_err,
+            # a train step's five forward launches at these shapes, one a view
+            "five_views": {
+                "max_abs_err": five_err, "bound_ms": nv * fwd_bms,
+                "inside_share_per_view": [float(inside[:, v].mean()) for v in range(nv)],
+                "ms": cuda_ms(lambda: [slicewarp.sample_view(hm2, pv, qv)
+                                       for pv, qv, _ in per_view], 10),
+                "library_ms": cuda_ms(lambda: [torch.nn.functional.grid_sample(
+                    hm_lib, gv, align_corners=True) for _, _, gv in per_view], 10)}},
     })
     return rows
 

@@ -34,11 +34,13 @@ NVCC_FLAGS = (
 EXTRA_FLAGS = {"sw_variants": ("-fmad=false",)}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C signatures: every pointer and the stream as c_void_p, sizes as c_int
+# C signatures: every pointer and the stream as c_void_p, sizes as c_int;
+# each returns an int (a CUDA error code) unless RESTYPES says otherwise
 SIGNATURES = {
     "slicewarp": {
-        "sp3d_sample_view": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-        "sp3d_sample_views_mean": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "sp3d_forward_scratch_floats": [_P, _I, _I, _I, _I, _I, _I],
+        "sp3d_sample_view": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+        "sp3d_sample_views_mean": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
         "sp3d_sample_view_adjoint": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "conv3": {"sp3d_conv3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
@@ -47,6 +49,7 @@ SIGNATURES = {
     },
     "microbench_primitives": {"sp3d_primitive": [_P, _P, _I, _I, _P]},
 }
+RESTYPES = {"sp3d_forward_scratch_floats": ctypes.c_int64}
 
 
 def nvcc() -> str:
@@ -124,5 +127,5 @@ def library(name: str) -> ctypes.CDLL:
     for fn, argtypes in SIGNATURES[name].items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
-        f.restype = ctypes.c_int
+        f.restype = RESTYPES.get(fn, ctypes.c_int)
     return lib

@@ -60,6 +60,14 @@ def sample_views_mean_plain(
     return torch.nan_to_num(out, nan=0.0).clamp(0.0, 1.0).to(out_dtype)
 
 
+def _padded_scratch(lib, hm: torch.Tensor, mean: bool, B: int, V: int, H: int, W: int, J: int):
+    """The scratch a forward entry asks for (``sp3d_forward_scratch_floats``)
+    for its copy of ``hm`` with the channels padded to a multiple of 4;
+    None where it reads ``hm`` as it is."""
+    n = lib.sp3d_forward_scratch_floats(hm.data_ptr(), int(mean), B, V, H, W, J)
+    return torch.empty(n, dtype=torch.float32, device=hm.device) if n else None
+
+
 def _check(name, t, shape):
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
@@ -153,10 +161,12 @@ def _sample_view_forward(hm: torch.Tensor, px: torch.Tensor, py: torch.Tensor) -
         return sample_view_plain(hm, px, py)
     lib = build.library("slicewarp")
     out = torch.empty((B, N, J), dtype=torch.float32, device=hm.device)
+    padded = _padded_scratch(lib, hm, False, B, 1, H, W, J)
     with torch.cuda.device(hm.device):
         err = lib.sp3d_sample_view(
-            hm.data_ptr(), px.data_ptr(), py.data_ptr(), out.data_ptr(),
-            B, N, H, W, J, torch.cuda.current_stream().cuda_stream,
+            hm.data_ptr(), px.data_ptr(), py.data_ptr(), out.data_ptr(), B, N, H, W, J,
+            None if padded is None else padded.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
         )
     if err:
         raise RuntimeError(f"sp3d_sample_view launch failed: CUDA error {err}")
@@ -229,11 +239,13 @@ def sample_views_mean(
         return sample_views_mean_plain(hm, px, py, bnd, out_dtype)
     lib = build.library("slicewarp")
     out = torch.empty((B, N, J), dtype=out_dtype, device=hm.device)
+    padded = _padded_scratch(lib, hm, True, B, V, H, W, J)
     with torch.cuda.device(hm.device):
         err = lib.sp3d_sample_views_mean(
             hm.data_ptr(), px.data_ptr(), py.data_ptr(), bnd.data_ptr(),
-            out.data_ptr(), int(out_dtype == torch.bfloat16),
-            B, V, N, H, W, J, torch.cuda.current_stream().cuda_stream,
+            out.data_ptr(), int(out_dtype == torch.bfloat16), B, V, N, H, W, J,
+            None if padded is None else padded.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
         )
     if err:
         raise RuntimeError(f"sp3d_sample_views_mean launch failed: CUDA error {err}")

@@ -67,6 +67,103 @@ def test_sample_views_mean_kernel_matches_plain(cuda, out_dtype, tol):
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
 
 
+# a forward block's run of points (csrc/slicewarp.cu kFwdRun; launch_views
+# halves it where the run's shared memory would pass 48 KB, as at J = 32, V = 5)
+FWD_RUN = 256
+# one less than a run, a run, one more, and a prime number of runs' worth
+EDGE_N = [FWD_RUN - 1, FWD_RUN, FWD_RUN + 1, 4099]
+EDGE_J = [1, 4, 15, 17, 32]
+
+
+def _edge_coords(g, shape, W, H, dev):
+    """Coordinates of ``_coords``, different for every leading index, with
+    the edge cases at points 0-5: wholly outside (left-above, right, below),
+    exactly on the last texel (only tap 0 in the image), taps on the last
+    row and column, and only tap 3 in the image."""
+    px, py = _coords(g, shape, W, H, dev)
+    edges = [(-3.0, -3.0), (W + 2.0, 0.5 * H), (0.5 * W, H + 0.75), (W - 1.0, H - 1.0),
+             (W - 1.5, H - 1.25), (-0.5, -0.5)]
+    for i, (x, y) in enumerate(edges[:shape[-1]]):
+        px[..., i], py[..., i] = x, y
+    return px, py
+
+
+@pytest.mark.parametrize("N", EDGE_N)
+@pytest.mark.parametrize("J", EDGE_J)
+def test_sample_view_kernel_edges(cuda, J, N):
+    """Runs cut at the batch element's end, B = 3 with different points
+    each, points outside the image and taps on its last row and column,
+    J = 1 (one thread a point) and J not a multiple of 4 (vector stores
+    with a ragged head and tail): against the plain version, 1e-5."""
+    g = torch.Generator(device=cuda).manual_seed(100 * J + N)
+    B, H, W = 3, 40, 72
+    hm = torch.rand(B, H, W, J, generator=g, device=cuda)
+    px, py = _edge_coords(g, (B, N), W, H, cuda)
+    before = LAUNCHES["sample_view"]
+    got = sample_view(hm, px, py)
+    torch.cuda.synchronize()
+    assert LAUNCHES["sample_view"] == before + 1
+    want = sample_view_plain(hm, px, py)
+    assert not bool(want[:, :3].any())  # the points wholly outside
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("out_dtype, tol", [(torch.float32, 1e-5), (torch.bfloat16, 4e-3)])
+@pytest.mark.parametrize("V", [1, 5])
+@pytest.mark.parametrize("J", EDGE_J)
+def test_sample_views_mean_kernel_edges(cuda, J, V, out_dtype, tol):
+    """The views kernel at every N of ``EDGE_N`` (runs cut at the batch
+    element's end), B = 3 with different points each, points outside the
+    image, taps on its last row and column, a point whose bounding weights
+    sum to 0 (its mean is 0), J padded to a multiple of 4 (1, 15, 17) or
+    not (4, 32): against the plain version with the bars of the main path."""
+    B, H, W = 3, 40, 72
+    g = torch.Generator(device=cuda).manual_seed(10 * J + V)
+    hm = torch.rand(B, V, H, W, J, generator=g, device=cuda)
+    for N in EDGE_N:
+        px, py = _edge_coords(g, (B, V, N), W, H, cuda)
+        bnd = (torch.rand(B, V, N, generator=g, device=cuda) > 0.3).float()
+        bnd[..., 6] = 0.0  # no view sees point 6
+        bnd[..., 7] = 1.0
+        before = LAUNCHES["sample_views_mean"]
+        got = sample_views_mean(hm, px, py, bnd, out_dtype)
+        torch.cuda.synchronize()
+        assert LAUNCHES["sample_views_mean"] == before + 1
+        assert got.dtype == out_dtype and got.shape == (B, N, J)
+        want = sample_views_mean_plain(hm, px, py, bnd, out_dtype)
+        assert not bool(got[:, 6].any())
+        torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("mean", [False, True])
+@pytest.mark.parametrize("J", [4, 8, 32])
+def test_forward_kernels_read_a_misaligned_view(cuda, J, mean):
+    """A contiguous heatmap view that starts one float past a 16-byte
+    boundary, J a multiple of 4: the kernels cannot take its texel rows as
+    16-byte loads, so the entry asks for the padded copy and reads that
+    (an aligned tensor is read as it is). Against the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(J + mean)
+    B, V, H, W, N = 2, (5 if mean else 1), 40, 72, 1000
+    shape = (B, V, H, W, J) if mean else (B, H, W, J)
+    hm = torch.rand(1 + B * V * H * W * J, generator=g, device=cuda)[1:].view(shape)
+    assert hm.is_contiguous() and hm.data_ptr() % 16 != 0
+    lib = build.library("slicewarp")
+    assert lib.sp3d_forward_scratch_floats(hm.data_ptr(), int(mean), B, V, H, W, J) == hm.numel()
+    aligned = hm.clone()
+    assert lib.sp3d_forward_scratch_floats(aligned.data_ptr(), int(mean), B, V, H, W, J) == 0
+    if mean:
+        px, py = _coords(g, (B, V, N), W, H, cuda)
+        bnd = (torch.rand(B, V, N, generator=g, device=cuda) > 0.3).float()
+        got = sample_views_mean(hm, px, py, bnd)
+        want = sample_views_mean_plain(hm, px, py, bnd)
+    else:
+        px, py = _coords(g, (B, N), W, H, cuda)
+        got = sample_view(hm, px, py)
+        want = sample_view_plain(hm, px, py)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
 @pytest.mark.parametrize("J", [1, 3, 15, 32])
 def test_sample_view_adjoint_kernel_matches_plain(cuda, J):
     """Float atomics add in any order: the tolerance is 1e-5 of the largest
