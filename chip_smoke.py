@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Phases, each printing one JSON line:
-  1. card     nvidia-smi name and power limit, torch/CUDA versions, and the
-              build of every CUDA kernel from csrc/ (one nvcc per source,
+  1. card     nvidia-smi name and power limit, the highest SM clock (the
+              shared-memory load rate of the bounds), torch/CUDA versions,
+              and the build of every CUDA kernel from csrc/ (one nvcc per source,
               all started together), with the registers, static shared
               memory and spills of the redesigned kernels (REDESIGNED);
   2. main     flagship do_inference (ResNet-50, 5 x 960x512 views, 80x80x20
@@ -46,7 +47,9 @@ Phases, each printing one JSON line:
               1e-5 on the entries each defines, the four primitive bodies
               exactly), the primitive kernel's time at 400 repetitions at
               least 1.5 times its time at 200, and no module of JAX or of
-              the JAX package loaded.
+              the JAX package loaded. Each probe's bound is priced from its
+              module's work(): bytes, FLOPs and shared-memory loads, the
+              largest of the three (bound_terms).
 Then the kernels line, and last {"ok": true, "device": {...}}. Any failed
 check raises and the script exits non-zero. It needs a CUDA device and
 exits non-zero without one.
@@ -75,14 +78,19 @@ from selfpose3d_tpu_torch.geometry.grid import compute_grid  # noqa: E402
 from selfpose3d_tpu_torch.microbench import conv3 as mb_conv3  # noqa: E402
 from selfpose3d_tpu_torch.microbench import primitives as mb_prim  # noqa: E402
 from selfpose3d_tpu_torch.microbench import sw_variants as mb_sw  # noqa: E402
-from selfpose3d_tpu_torch.microbench.common import card_line, cuda_ms  # noqa: E402
+from selfpose3d_tpu_torch.microbench.common import (  # noqa: E402
+    card_line, cuda_ms, sm_clock_max_mhz)
 from selfpose3d_tpu_torch.ops import build, slicewarp  # noqa: E402
 from selfpose3d_tpu_torch.ops.unproject import compute_sample_grid, to_pixels  # noqa: E402
 
-# H100 SXM published peaks (HBM3 bandwidth, dense FP32 rate)
+# H100 SXM published peaks (HBM3 bandwidth, dense FP32 rate); shared
+# memory serves 32 four-byte loads a clock on each of the 132 SMs, at the
+# card's highest SM clock (read in phase_card)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+SMS, SMEM_LOADS_PER_CLOCK = 132, 32
+SM_CLOCK_HZ = 1.98e9  # replaced by the card's clocks.max.sm in phase_card
 SOURCE = "selfpose3d_tpu_torch/csrc/slicewarp.cu"
 
 
@@ -160,16 +168,28 @@ def randomize(model, seed):
     return model
 
 
-def bound(bytes_moved, flops, peak=F32_FLOPS):
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / peak
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+def bound_terms(bytes_moved, flops, peak=F32_FLOPS, smem_loads=0):
+    """ms of each basis of the bound: the bytes at the HBM rate, the FLOPs at
+    ``peak``, the shared-memory loads at the card's load rate."""
+    return {"bytes": bytes_moved / HBM_BYTES_PER_S * 1e3, "FLOPs": flops / peak * 1e3,
+            "shared-memory loads": smem_loads / (SMS * SMEM_LOADS_PER_CLOCK * SM_CLOCK_HZ) * 1e3}
+
+
+def bound(bytes_moved, flops, peak=F32_FLOPS, smem_loads=0):
+    """The least time (ms) and what bounds it, "bytes" or "operations" (FLOPs
+    or shared-memory loads; ``bound_terms`` names which)."""
+    terms = bound_terms(bytes_moved, flops, peak, smem_loads)
+    basis = max(terms, key=terms.get)
+    return terms[basis], ("bytes" if basis == "bytes" else "operations")
 
 
 # the kernels redesigned for Hopper (conv3, the adjoint, the forward
-# samplers and their channel padding): the card phase prints their
+# samplers and their channel padding, the slice-warp probe and its
+# channel-last copy, the primitive probe): the card phase prints their
 # registers, static shared memory and spills
 REDESIGNED = ("conv3_kernel", "sample_view_adjoint_kernel", "sample_views_kernel",
-              "sample_view_j1_kernel", "sample_view_pad_kernel")
+              "sample_view_j1_kernel", "sample_view_pad_kernel", "sw_slice_kernel",
+              "sw_pad_kernel", "primitive_band_kernel")
 # template arguments as they appear mangled: integers, booleans, types
 MANGLED_ARG = r"L[ib](\d+)E|f|13__nv_bfloat16"
 MANGLED_TYPES = {"f": "float", "13__nv_bfloat16": "bf16"}
@@ -207,8 +227,10 @@ def ptxas_figures(log, names=REDESIGNED):
 
 
 def phase_card():
+    global SM_CLOCK_HZ
     smi = card_line()
     print(smi, flush=True)
+    SM_CLOCK_HZ = sm_clock_max_mhz() * 1e6
     t0 = time.perf_counter()
     built = build.build()
     for name in built:
@@ -217,7 +239,7 @@ def phase_card():
              if "registers" in ln or "spill" in ln]
     emit({"phase": "card", "nvidia_smi": smi, "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda,
+          "cuda": torch.version.cuda, "sm_clock_max_mhz": SM_CLOCK_HZ / 1e6,
           "build_s": round(time.perf_counter() - t0, 3),
           "nvcc_s": {k: round(v["seconds"], 3) for k, v in built.items()},
           "ptxas": ptxas,
@@ -735,7 +757,6 @@ def microbench_sw_variants():
     hm, xs, ys = mb_sw.make_inputs("cuda")
     variants, launches = {}, 0
     B, J, Wp, Hp = hm.shape
-    pts = xs.numel() // B
     xs_shape = list(xs.shape)
     for mode in mb_sw.MODES:
         mb_sw.reset_launches()
@@ -748,14 +769,12 @@ def microbench_sw_variants():
                      - mb_sw.sw_variant_plain(mode, hm, xs, ys)[:, :, :, ch]).abs().max())
         torch.cuda.empty_cache()
         assert err <= 1e-5, (mode, err)
-        nch = 1 if mode == "j1" else J
-        # bytes: the planes read, xs and ys once, the written channels once
-        # (f32); operations: about 8 a point and channel and 12 a point
-        bms, by = bound(4 * (B * nch * Wp * Hp + 2 * B * pts + B * pts * nch),
-                        B * pts * (8 * nch + 12))
+        w = mb_sw.work(mode, hm.shape, xs.shape)
+        bms, by = bound(w["bytes"], w["flops"], smem_loads=w["smem_loads"])
         variants[mode] = {"launches": n, "max_abs_err": err, "ms": res[f"{mode}_ms"],
                           "plain_ms": res[f"{mode}_plain_ms"], "library_ms": None,
-                          "bound_ms": bms, "bound_by": by}
+                          "bound_ms": bms, "bound_by": by,
+                          "bound_share": bms / res[f"{mode}_ms"]}
     del hm, xs, ys
     torch.cuda.empty_cache()
     return _headline(
@@ -763,10 +782,6 @@ def microbench_sw_variants():
         "scripts/microbench_sw_variants.py:21 (make_kernel)", launches, variants, "full",
         library="none: no one PyTorch call computes the column-hosted sampler",
         shapes={"hm": [B, J, Wp, Hp], "xs": xs_shape})
-
-
-# operations a repetition does on one output element
-PRIMITIVE_OPS = {"gather": 4, "transpose": 1, "cmp_add": 2, "transpose_64x256": 1}
 
 
 def microbench_primitives():
@@ -779,7 +794,7 @@ def microbench_primitives():
     torch.cuda.empty_cache()
     variants, launches = {}, 0
     reps = mb_prim.REPS
-    for i, (body, (shape_in, shape_out, key)) in enumerate(mb_prim.BODIES.items()):
+    for i, (body, (_, shape_out, key)) in enumerate(mb_prim.BODIES.items()):
         x = mb_prim.make_input(body, "cuda", seed=i)
         mb_prim.reset_launches()
         res = mb_prim.measure_body(body, x)
@@ -792,9 +807,9 @@ def microbench_primitives():
         t200 = cuda_ms(lambda: mb_prim.primitive(body, x, 200), 20)
         t400 = cuda_ms(lambda: mb_prim.primitive(body, x, 400), 20)
         assert t400 >= 1.5 * t200, (body, t200, t400)
-        elems_in, elems_out = shape_in[0] * shape_in[1], shape_out[0] * shape_out[1]
-        written = elems_out // 2 if body == "transpose_64x256" else elems_out
-        bms, by = bound(4 * (elems_in + elems_out), reps * written * PRIMITIVE_OPS[body])
+        w = mb_prim.work(body, reps)
+        terms = bound_terms(w["bytes"], w["flops"], smem_loads=w["smem_loads"])
+        bms, by = bound(w["bytes"], w["flops"], smem_loads=w["smem_loads"])
         lib = res[f"{key}_library_us_per_op"]
         variants[body] = {
             "launches": n, "max_abs_err": float((got - want).abs().max()),
@@ -802,11 +817,17 @@ def microbench_primitives():
             "ms": res[f"{key}_us_per_op"] * reps / 1e3,
             "plain_ms": res[f"{key}_plain_us_per_op"] * reps / 1e3,
             "library_ms": None if lib is None else lib * reps / 1e3,
-            "bound_ms": bms, "bound_by": by, "ms_200_reps": t200, "ms_400_reps": t400}
+            "bound_ms": bms, "bound_by": by, "bound_basis": max(terms, key=terms.get),
+            "bound_terms_ms": terms,
+            "bound_share": bms / (res[f"{key}_us_per_op"] * reps / 1e3),
+            "band": mb_prim.BANDS[body],
+            "blocks": shape_out[0] // mb_prim.BANDS[body],
+            "ms_200_reps": t200, "ms_400_reps": t400}
     return _headline(
         "primitive", "selfpose3d_tpu_torch/csrc/microbench_primitives.cu",
         "scripts/microbench.py:99 (bench_kernel)", launches, variants, "transpose",
-        reps=reps, library="per repetition: torch.add(a.t(), i, out=...) (transposes), "
+        reps=reps, sm_clock_max_mhz=SM_CLOCK_HZ / 1e6,
+        library="per repetition: torch.add(a.t(), i, out=...) (transposes), "
         "torch.gather with its index built before (gather); none for cmp_add",
         posenet_parts_ms=parts)
 

@@ -20,6 +20,17 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+def sm_clock_max_mhz() -> float:
+    """The first card's highest SM clock in MHz, as ``nvidia-smi
+    --query-gpu=clocks.max.sm`` reports it (the clock of its published
+    rates)."""
+    line = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    return float(line)
+
+
 def card(device="cuda") -> torch.device:
     """The probe's device: a CUDA device, or an error (a probe times the card
     and has no CPU mode)."""

@@ -5,7 +5,11 @@ counterpart of ``scripts/microbench.py``.
 primitive body run ``reps`` times inside one program on a tile held on
 chip) with a hand-written CUDA kernel (``csrc/microbench_primitives.cu``,
 where the four bodies are spelled out); ``primitive_plain`` runs the same
-repetitions as a loop of PyTorch ops.
+repetitions as a loop of PyTorch ops. The TPU probe priced the v5e's one
+TensorCore, which is the whole chip; the kernel spreads the tile over the
+card in bands of output rows, so it prices the card's rate. ``work`` gives
+the bytes, operations and shared-memory loads a body needs, from which
+``chip_smoke.py`` prices its bound.
 
     python -m selfpose3d_tpu_torch.microbench.primitives
 
@@ -16,9 +20,11 @@ to NDHWC feats transpose (``feats_transpose_ms``); C. the channel-major
 ``soft_argmax`` (``softargmax_ms``); D. each body's kernel time per
 repetition at ``REPS`` (``gather_256x128_us_per_op``, ...), its plain
 version's and, where one PyTorch call does a repetition's work, that
-call's (``..._library_us_per_op``). Inputs are seeded uniform values in
-[0, 128) (the TPU probe's are ones, which make every gather read one
-column).
+call's (``..._library_us_per_op``). With ``--bands`` it prints instead
+each body's kernel ms at 200 and 400 repetitions for every band of
+``BAND_CHOICES``, the measurement ``BANDS`` is chosen from. Inputs are
+seeded uniform values in [0, 128) (the TPU probe's are ones, which make
+every gather read one column).
 
 ``primitive`` takes CPU tensors to the plain version and CUDA tensors to
 the kernel, which it launches or raises on; it never falls back.
@@ -28,6 +34,7 @@ the kernel, which it launches or raises on; it never falls back.
 from __future__ import annotations
 
 import json
+import sys
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -51,6 +58,19 @@ BODIES: Dict[str, Tuple[Tuple[int, int], Tuple[int, int], str]] = {
 }
 _BODY_ID = {b: i for i, b in enumerate(BODIES)}
 LAUNCHES = {"primitive": 0}
+# output rows a block takes on the card: the bands the kernel is built for
+# (a thread 1, 2, 4, 8 or 16 outputs of 128 threads), and each body's
+# default, chosen on the card (PERF.md) as the most blocks at which
+# 400 repetitions still take at least 1.5 times as long as 200, so that a
+# launch's fixed cost does not hide the repetitions
+BAND_CHOICES = {"gather": (1, 2, 4, 8, 16), "transpose": (1, 2, 4, 8),
+                "cmp_add": (1, 2, 4, 8), "transpose_64x256": (2, 4, 8, 16, 32)}
+BANDS = {"gather": 1, "transpose": 8, "cmp_add": 4, "transpose_64x256": 32}
+# per repetition and written output element: float32 operations (the
+# gather's index: convert, add, two clamps; a transpose's add; cmp_add's
+# compare and add) and shared-memory loads (the gather's index and value)
+OPS = {"gather": 4, "transpose": 1, "cmp_add": 2, "transpose_64x256": 1}
+SMEM_LOADS = {"gather": 2, "transpose": 1, "cmp_add": 1, "transpose_64x256": 1}
 
 
 def reset_launches() -> None:
@@ -79,14 +99,19 @@ def primitive_plain(body: str, x: torch.Tensor, reps: int) -> torch.Tensor:
     return out
 
 
-def primitive(body: str, x: torch.Tensor, reps: int = REPS) -> torch.Tensor:
+def primitive(body: str, x: torch.Tensor, reps: int = REPS,
+              band: Optional[int] = None) -> torch.Tensor:
     """``reps`` repetitions of one primitive body in one launch (replaces
     ``bench_kernel``).
 
     Args:
       body: one of ``BODIES``.
-      x: the body's input tile, float32 of ``BODIES[body][0]``.
+      x: the body's input tile, float32 of ``BODIES[body][0]``; on the card
+        contiguous and 16-byte aligned.
       reps: repetitions, >= 1.
+      band: output rows a block takes on the card, one of
+        ``BAND_CHOICES[body]`` (default ``BANDS[body]``); it does not change
+        the result.
     Returns:
       The output tile after the last repetition, float32 of
       ``BODIES[body][1]``. cmp_add counts from zero; transpose_64x256's
@@ -101,17 +126,33 @@ def primitive(body: str, x: torch.Tensor, reps: int = REPS) -> torch.Tensor:
         raise TypeError(f"{body}: dtype {x.dtype}, expected float32")
     if reps < 1:
         raise ValueError(f"reps={reps}: at least 1")
+    band = BANDS[body] if band is None else band
+    if band not in BAND_CHOICES[body]:
+        raise ValueError(f"{body}: band {band}, one of {BAND_CHOICES[body]}")
     if not kernel_route((x,)):
         return primitive_plain(body, x, reps)
+    if x.data_ptr() % 16:
+        raise ValueError(f"{body}: the kernel reads a 16-byte aligned tile; this view is not")
     lib = build.library("microbench_primitives")
     out = torch.empty(shape_out, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = lib.sp3d_primitive(x.data_ptr(), out.data_ptr(), _BODY_ID[body], reps,
+        err = lib.sp3d_primitive(x.data_ptr(), out.data_ptr(), _BODY_ID[body], reps, band,
                                  torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"sp3d_primitive launch failed: CUDA error {err}")
     LAUNCHES["primitive"] += 1
     return out
+
+
+def work(body: str, reps: int = REPS) -> dict:
+    """The work of ``reps`` repetitions of ``body``, whatever the kernel
+    does: ``bytes`` (the tile read once, the output written once, float32),
+    ``flops`` and ``smem_loads`` (``OPS`` and ``SMEM_LOADS`` a repetition
+    and written element; transpose_64x256 writes half its output)."""
+    (ri, ci), (ro, co), _ = BODIES[body]
+    written = ro * co // 2 if body == "transpose_64x256" else ro * co
+    return {"bytes": 4 * (ri * ci + ro * co), "flops": reps * written * OPS[body],
+            "smem_loads": reps * written * SMEM_LOADS[body]}
 
 
 def library_call(body: str, x: torch.Tensor) -> Optional[Callable[[int], torch.Tensor]]:
@@ -185,15 +226,32 @@ def measure_posenet_parts(device, iters: int = 10) -> dict:
     return res
 
 
-def main(device="cuda") -> dict:
+def measure_bands(body: str, x: torch.Tensor, iters: int = 20) -> dict:
+    """{band: {"ms_200_reps", "ms_400_reps", "ratio"}}: the kernel's time
+    at 200 and 400 repetitions for every band it takes (CUDA events around
+    ``iters`` launches)."""
+    res = {}
+    for band in BAND_CHOICES[body]:
+        t200 = cuda_ms(lambda: primitive(body, x, 200, band), iters)
+        t400 = cuda_ms(lambda: primitive(body, x, 400, band), iters)
+        res[band] = {"blocks": BODIES[body][1][0] // band, "ms_200_reps": t200,
+                     "ms_400_reps": t400, "ratio": t400 / t200}
+    return res
+
+
+def main(device="cuda", bands: bool = False) -> dict:
     dev = card(device)
     print(card_line(), flush=True)
-    results = measure_posenet_parts(dev)
-    for i, body in enumerate(BODIES):
-        results.update(measure_body(body, make_input(body, dev, seed=i)))
+    if bands:
+        results = {body: measure_bands(body, make_input(body, dev, seed=i))
+                   for i, body in enumerate(BODIES)}
+    else:
+        results = measure_posenet_parts(dev)
+        for i, body in enumerate(BODIES):
+            results.update(measure_body(body, make_input(body, dev, seed=i)))
     print(json.dumps(results, indent=1), flush=True)
     return results
 
 
 if __name__ == "__main__":
-    main()
+    main(bands="--bands" in sys.argv[1:])

@@ -6,9 +6,13 @@
 probe times to attribute the TPU sampler's per-slice cost) with a
 hand-written CUDA kernel (``csrc/sw_variants.cu``), and ``sw_variant_plain``
 computes the same function in plain PyTorch. The function and the modes
-are spelled out in the CUDA source. The GPU has no lane gathers or
-transposes to ablate, so on the card the mode times attribute the GPU's
-cost: the search, the tap selection, the channel loop.
+are spelled out in the CUDA source, with the kernel's design: a
+channel-last copy of the planes, a block a band of slice rows with their
+r tables in shared memory, taps staged a point, then one 16-byte load a
+tap and channel quad. The GPU has no lane gathers or transposes to
+ablate, so on the card the mode times attribute the GPU's cost: the
+search, the tap selection, the channel loop. ``work`` gives the bytes and
+operations each mode needs, from which ``chip_smoke.py`` prices its bound.
 
     python -m selfpose3d_tpu_torch.microbench.sw_variants
 
@@ -147,6 +151,9 @@ def sw_variant(mode: str, hm: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor) 
     Returns:
       (B, S/SB, SB, J, Xp, Yp) float32. j1 writes channel 0 only: on the card
       the other channels are left as ``torch.empty`` gave them.
+
+    On the card it also needs Xp <= Wp, Wp * Hp a multiple of 4 and at most
+    65536, S <= 65535 and hm 16-byte aligned, and raises otherwise.
     """
     if mode not in _MODE_ID:
         raise ValueError(f"mode {mode!r}: one of {MODES}")
@@ -163,17 +170,43 @@ def sw_variant(mode: str, hm: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor) 
                          f"got Yp={Yn}, Wp={Wc}, Hp={Hc}")
     if not kernel_route((hm, xs, ys)):
         return sw_variant_plain(mode, hm, xs, ys)
-    lib = build.library("sw_variants")
     s_all = xs.shape[1] * xs.shape[2]
+    if Xn > Wc or Wc * Hc > 65536 or (Wc * Hc) % 4 or s_all > 65535:
+        raise ValueError(f"the kernel takes Xp <= Wp, Wp * Hp a multiple of 4 and at most "
+                         f"65536, S <= 65535; got Xp={Xn}, Wp={Wc}, Hp={Hc}, S={s_all}")
+    if hm.data_ptr() % 16:
+        raise ValueError("hm: the kernel reads 16-byte aligned planes; this view is not")
+    lib = build.library("sw_variants")
     out = torch.empty((*xs.shape[:3], Jn, Xn, Yn), dtype=torch.float32, device=hm.device)
+    mid = _MODE_ID[mode]
+    n = lib.sp3d_sw_scratch_floats(mid, Bn, Jn, Wc, Hc)
+    padded = torch.empty(n, dtype=torch.float32, device=hm.device) if n else None
     with torch.cuda.device(hm.device):
         err = lib.sp3d_sw_variant(hm.data_ptr(), xs.data_ptr(), ys.data_ptr(), out.data_ptr(),
-                                  _MODE_ID[mode], Bn, s_all, Jn, Wc, Hc, Xn, Yn, W, H, Y,
+                                  None if padded is None else padded.data_ptr(), mid, Bn,
+                                  s_all, Jn, Wc, Hc, Xn, Yn, W, H, Y,
                                   torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"sp3d_sw_variant launch failed: CUDA error {err}")
     LAUNCHES["sw_variant"] += 1
     return out
+
+
+def work(mode: str, hm_shape, xs_shape) -> dict:
+    """The work the function needs, whatever the kernel does: ``bytes``
+    (the planes of the written channels read once, xs and ys read once, the
+    written channels of the output written once, float32), ``flops`` (about
+    8 a point and written channel and 12 a point) and ``smem_loads`` (0:
+    the taps are gathers from device memory; the kernel's staging in
+    shared memory is a choice of design, not part of the work).
+
+    Args: mode (one of ``MODES``), hm's shape (B, J, Wp, Hp), xs's shape
+    (B, S/SB, SB, Xp, Yp)."""
+    Bn, Jn, Wc, Hc = hm_shape
+    pts = int(np.prod(xs_shape[1:]))  # points a batch element
+    nch = 1 if mode == "j1" else Jn
+    return {"bytes": 4 * (Bn * nch * Wc * Hc + 2 * Bn * pts + Bn * pts * nch),
+            "flops": Bn * pts * (8 * nch + 12), "smem_loads": 0}
 
 
 def make_inputs(device, seed: int = 0):

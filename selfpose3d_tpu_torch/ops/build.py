@@ -45,11 +45,13 @@ SIGNATURES = {
     },
     "conv3": {"sp3d_conv3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
     "sw_variants": {
-        "sp3d_sw_variant": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        "sp3d_sw_scratch_floats": [_I, _I, _I, _I, _I],
+        "sp3d_sw_variant": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     },
-    "microbench_primitives": {"sp3d_primitive": [_P, _P, _I, _I, _P]},
+    "microbench_primitives": {"sp3d_primitive": [_P, _P, _I, _I, _I, _P]},
 }
-RESTYPES = {"sp3d_forward_scratch_floats": ctypes.c_int64}
+RESTYPES = {"sp3d_forward_scratch_floats": ctypes.c_int64,
+            "sp3d_sw_scratch_floats": ctypes.c_int64}
 
 
 def nvcc() -> str:

@@ -37,6 +37,19 @@ def _coords(g, shape, W, H, dev):
     return px, py
 
 
+def _identity_bar(hm, px, py, cot):
+    """The bar of the inner-product identity <sample_view(h), g> ==
+    <h, adjoint(g)>: 1e-5 of the float64 sum of |w_tap * h * g| over all
+    points, taps and channels. Each float32 atomic add into a texel errs by
+    at most half an ulp of a partial sum no larger than that texel's sum of
+    |terms|, so the adjoint's error in <h, adjoint(g)> is at most about
+    (adds a texel) * 6e-8 of this sum, in whatever order the adds come;
+    the identity's own sum may cancel far below it (12.05 at the edge case
+    with J = 15, where 1e-5 of it was the size of that noise)."""
+    terms = sample_view_plain(hm.double().abs(), px, py) * cot.double().abs()
+    return 1e-5 * float(terms.sum())
+
+
 @pytest.mark.parametrize("J", [1, 3, 15, 32])
 def test_sample_view_kernel_matches_plain(cuda, J):
     g = torch.Generator(device=cuda).manual_seed(J)
@@ -193,7 +206,7 @@ def test_sample_view_adjoint_inner_product_identity(cuda):
     cot = torch.rand(B, N, J, generator=g, device=cuda)
     lhs = float((sample_view(hm, px, py).double() * cot.double()).sum())
     rhs = float((hm.double() * sample_view_adjoint(cot, px, py, (H, W)).double()).sum())
-    assert abs(lhs - rhs) <= 1e-5 * abs(lhs)
+    assert abs(lhs - rhs) <= _identity_bar(hm, px, py, cot)
 
 
 def test_sample_view_backward_launches_the_adjoint(cuda):
@@ -384,9 +397,9 @@ def test_sample_view_adjoint_kernel_cases(cuda, case, J):
     contention, one private tile), points spread over the whole image (the
     boxes do not fit: the direct path), runs that cross the image's edges,
     an all-zero cotangent (every run exits after its read) and one zero on
-    every other 700 points (runs half zero). Against the float64 plain
-    version (1e-5 of the largest gradient) and the inner-product identity
-    (1e-5 relative)."""
+    every other 700 points (runs half zero). Against the inner-product
+    identity (``_identity_bar``) and the float64 plain version (1e-5 of
+    the largest gradient)."""
     g = torch.Generator(device=cuda).manual_seed(J)
     B, N, H, W = 2, 50_000, 128, 240
     px, py, cot = _adjoint_case(case, g, B, N, H, W, J, cuda)
@@ -394,15 +407,15 @@ def test_sample_view_adjoint_kernel_cases(cuda, case, J):
     got = sample_view_adjoint(cot, px, py, (H, W))
     torch.cuda.synchronize()
     assert LAUNCHES["sample_view_adjoint"] == before + 1
-    want = sample_view_adjoint_plain(cot.double(), px, py, (H, W))
     if case == "all_zero":
         assert not bool(got.any())
         return
-    torch.testing.assert_close(got.double(), want, rtol=0, atol=1e-5 * float(want.abs().max()))
     hm = torch.rand(B, H, W, J, generator=g, device=cuda)
     lhs = float((sample_view(hm, px, py).double() * cot.double()).sum())
     rhs = float((hm.double() * got.double()).sum())
-    assert abs(lhs - rhs) <= 1e-5 * abs(lhs)
+    assert abs(lhs - rhs) <= _identity_bar(hm, px, py, cot)
+    want = sample_view_adjoint_plain(cot.double(), px, py, (H, W))
+    torch.testing.assert_close(got.double(), want, rtol=0, atol=1e-5 * float(want.abs().max()))
 
 
 @pytest.mark.parametrize("mode", sw_variants.MODES)
@@ -436,6 +449,106 @@ def test_primitive_kernel_matches_plain(cuda, body):
         torch.cuda.synchronize()
         assert primitives.LAUNCHES["primitive"] == before + 1
         assert torch.equal(got, primitives.primitive_plain(body, x, reps)), (body, reps)
+
+
+SW_EDGE_J = [1, 3, 4, 15, 17]
+
+
+def _sw_edge_inputs(J, seed):
+    """B = 2, one group of SB = 3 slices of Xp = 5 slice rows (an odd count:
+    the last band of a block's two rows holds one) at the probe's row
+    geometry (Yp = 128, Wp x Hp = 256 x 128, a 240 x 128 image): xs up to
+    1.2 W, so that x0c and x1c clamp at W - 1; ys in [-8, H + 8), so that
+    tap rows clip at 0 and H - 1; one row reversed (sgn = -1) and one
+    unsorted."""
+    rng = np.random.default_rng(seed)
+    sh = (2, 1, 3, 5, sw_variants.Yp)
+    hm = rng.random((2, J, sw_variants.Wp, sw_variants.Hp), dtype=np.float32)
+    xs = np.sort(rng.random(sh, dtype=np.float32) * np.float32(1.2 * sw_variants.W), -1)
+    xs[1, 0, 2, 4] = xs[1, 0, 2, 4, ::-1]
+    xs[0, 0, 1, 3] = rng.permutation(xs[0, 0, 1, 3])
+    ys = rng.random(sh, dtype=np.float32) * np.float32(sw_variants.H + 16) - np.float32(8)
+    return hm, xs, ys
+
+
+@pytest.mark.parametrize("J", SW_EDGE_J)
+@pytest.mark.parametrize("mode", sw_variants.MODES)
+def test_sw_variant_kernel_edges(cuda, mode, J):
+    """Every mode at J = 1 (one thread a point on the plane, no copy), J
+    not a multiple of 4 (the padded channel-last copy with zero channels)
+    and J = 4, 15, on the edge inputs of ``_sw_edge_inputs``: against the
+    plain version, 1e-5 absolute (j1: channel 0, the only one it
+    writes); the scratch the entry asks for is the padded copy's size."""
+    hm, xs, ys = (torch.from_numpy(a).to(cuda) for a in _sw_edge_inputs(J, 10 * J + 1))
+    mid = sw_variants.MODES.index(mode)
+    Jp = (J + 3) // 4 * 4
+    want_scratch = 0 if mode == "j1" or J == 1 else 2 * sw_variants.Wp * sw_variants.Hp * Jp
+    lib = build.library("sw_variants")
+    assert lib.sp3d_sw_scratch_floats(mid, 2, J, sw_variants.Wp, sw_variants.Hp) == want_scratch
+    before = sw_variants.LAUNCHES["sw_variant"]
+    got = sw_variants.sw_variant(mode, hm, xs, ys)
+    torch.cuda.synchronize()
+    assert sw_variants.LAUNCHES["sw_variant"] == before + 1
+    want = sw_variants.sw_variant_plain(mode, hm, xs, ys)
+    ch = slice(0, 1) if mode == "j1" else slice(None)
+    torch.testing.assert_close(got[:, :, :, ch], want[:, :, :, ch], rtol=0, atol=1e-5)
+
+
+def test_probe_kernels_raise_on_misaligned_or_strided_input(cuda):
+    """A view one float past a 16-byte boundary, or a strided tensor, raises
+    before any launch instead of being read wrongly."""
+    Wp, Hp, Yp = sw_variants.Wp, sw_variants.Hp, sw_variants.Yp
+    hm = torch.rand(1 + 2 * Wp * Hp, device=cuda)[1:].view(1, 2, Wp, Hp)
+    xs = torch.rand(1, 1, 2, 4, Yp, device=cuda) * 200
+    before = (dict(sw_variants.LAUNCHES), dict(primitives.LAUNCHES))
+    assert hm.is_contiguous() and hm.data_ptr() % 16 != 0
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        sw_variants.sw_variant("full", hm, xs, xs)
+    with pytest.raises(ValueError, match="contiguous"):
+        sw_variants.sw_variant("full", torch.rand(1, 2, Hp, Wp, device=cuda).transpose(2, 3),
+                               xs, xs)
+    strided = (torch.rand(1, 1, 2, Yp, 4, device=cuda) * 200).transpose(3, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        sw_variants.sw_variant("full", hm.clone(), strided, strided)
+    for body, ((r, c), _, _) in primitives.BODIES.items():
+        x = torch.rand(1 + r * c, device=cuda)[1:].view(r, c)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            primitives.primitive(body, x, 3)
+        with pytest.raises(ValueError, match="contiguous"):
+            primitives.primitive(body, torch.rand(c, r, device=cuda).t(), 3)
+    assert (sw_variants.LAUNCHES, primitives.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("reps", [1, 2, 3, 7, 200, 401])
+@pytest.mark.parametrize("body", list(primitives.BODIES))
+def test_primitive_kernel_reps(cuda, body, reps):
+    """Repetition counts below, at and past the kernel's unrolled group of
+    4, with a tail of 1, 2 and 3: exactly the plain version."""
+    x = primitives.make_input(body, cuda, seed=reps)
+    before = primitives.LAUNCHES["primitive"]
+    got = primitives.primitive(body, x, reps)
+    torch.cuda.synchronize()
+    assert primitives.LAUNCHES["primitive"] == before + 1
+    assert torch.equal(got, primitives.primitive_plain(body, x, reps)), (body, reps)
+
+
+@pytest.mark.parametrize("body", list(primitives.BODIES))
+def test_primitive_kernel_every_band(cuda, body):
+    """Every band the kernel takes (a thread 1 to 16 outputs, 8 to 256
+    blocks) gives the plain version's result exactly, and the C entry takes
+    exactly the bands of ``BAND_CHOICES``."""
+    lib = build.library("microbench_primitives")
+    bid = list(primitives.BODIES).index(body)
+    x = primitives.make_input(body, cuda, seed=3)
+    out = torch.empty(primitives.BODIES[body][1], device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    taken = [b for b in range(0, 65)
+             if lib.sp3d_primitive(x.data_ptr(), out.data_ptr(), bid, 3, b, stream) == 0]
+    torch.cuda.synchronize()
+    assert taken == list(primitives.BAND_CHOICES[body])
+    want = primitives.primitive_plain(body, x, 7)
+    for band in primitives.BAND_CHOICES[body]:
+        assert torch.equal(primitives.primitive(body, x, 7, band), want), (body, band)
 
 
 def test_probe_kernels_raise_when_library_unbuilt(cuda, monkeypatch):
