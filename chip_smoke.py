@@ -28,7 +28,25 @@ Phases, each printing one JSON line:
               injected synthetic-root draws: with BatchNorm on its running
               statistics the losses and every parameter's gradient are
               held, with batch statistics the losses;
-  7. kernels  each kernel at its main path's shapes and sample points (with
+  7. supervised  the supervised baseline (configs/panoptic/resnet50/
+              prn64_cpn80x80x20_960x512_cam5.yaml, MODEL multi_person_posenet)
+              at full width: ResNet-50, 5 x 960x512, RootNet on all 15
+              heatmap channels over the 80x80x20 space, 64^3 cubes, K = 10,
+              bf16, batch 2, random weights from seed 0, a 3-person scene
+              with three GT people moved onto proposals (the GT matching
+              leaves holes; PoseNet gets a gradient): three timed train steps
+              after a warm-up as the YAML stands (frozen backbone) and with
+              NETWORK.TRAIN_BACKBONE true, one under NETWORK.USE_GT
+              (loss_cord > 0), each step's launch counts and the sub-networks
+              that moved asserted; the forward at TEST.BATCH_SIZE 4; the
+              small float32 supervised model on the card against the CPU;
+  8. stages   the paper's SSL stages 1 and 2 at full width:
+              backbone_pseudo_hrnet_soft_9videos.yaml (TRAIN_ONLY_2D) at
+              batch 4, two steps, only the backbone moves and no sampler
+              runs; cam5_rootnet.yaml (TRAIN_ONLY_ROOTNET) at batch 1, three
+              steps after a warm-up, only RootNet moves, 10 sample_view
+              launches a step and no adjoint;
+  9. kernels  each kernel at its main path's shapes and sample points (with
               seeded uniform heatmaps), held against its plain version,
               timed beside it, beside its bound, and beside one PyTorch
               library call where one computes the same function (for
@@ -37,8 +55,12 @@ Phases, each printing one JSON line:
               step-like cotangent (each of the five views' launches with
               the rows of points outside that view's image zeroed), and
               sample_view also at the train shapes, one view and the five
-              of a train step;
-  8. microbench  the three measurement probes (selfpose3d_tpu_torch/
+              of a train step; then the three samplers at the supervised
+              path's shapes (sample_view and its adjoint, on a dense
+              cotangent, at RootNet's whole space with J = 15;
+              sample_views_mean on the supervised forward's cubes), and
+              every sampler's launches on each path;
+ 10. microbench  the three measurement probes (selfpose3d_tpu_torch/
               microbench/: conv3, sw_variants, primitives) at their full
               shapes, each probe's measurement driven with its kernel's
               launch count set to 0 just before and read just after; then
@@ -59,6 +81,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import re
 import sys
@@ -73,7 +96,8 @@ from selfpose3d_tpu_torch.config import flagship_cfg, load_config  # noqa: E402
 from selfpose3d_tpu_torch.data.synthetic import make_synthetic_branch  # noqa: E402
 from selfpose3d_tpu_torch.models import get_model  # noqa: E402
 from selfpose3d_tpu_torch.models.multi_person import cat_branches  # noqa: E402
-from selfpose3d_tpu_torch.train import create_train_state, make_ssv_train_step  # noqa: E402
+from selfpose3d_tpu_torch.train import (  # noqa: E402
+    create_train_state, make_ssv_train_step, make_supervised_train_step)
 from selfpose3d_tpu_torch.geometry.grid import compute_grid  # noqa: E402
 from selfpose3d_tpu_torch.microbench import conv3 as mb_conv3  # noqa: E402
 from selfpose3d_tpu_torch.microbench import primitives as mb_prim  # noqa: E402
@@ -469,6 +493,418 @@ def phase_train_parity():
     assert held["max"] <= 1e-2 and held["median"] <= 1e-3, held
 
 
+# the supervised baseline and the paper's SSL stages 1 and 2, at full width
+SUPERVISED_YAML = "configs/panoptic/resnet50/prn64_cpn80x80x20_960x512_cam5.yaml"
+STAGE1_YAML = "configs/panoptic_ssl/resnet50/backbone_pseudo_hrnet_soft_9videos.yaml"
+STAGE2_YAML = "configs/panoptic_ssl/resnet50/cam5_rootnet.yaml"
+SAMPLERS = ("sample_view", "sample_views_mean", "sample_view_adjoint")
+
+
+def yaml_cfg(path, **network):
+    """A config under configs/ as the port's ``load_config`` reads it, with
+    the NETWORK fields given changed."""
+    return load_config(os.path.join(ROOT, path),
+                       overrides={"NETWORK": network} if network else None)
+
+
+def sampler_counts(view, mean, adjoint):
+    """Launches of sample_view, sample_views_mean, sample_view_adjoint."""
+    return dict(zip(SAMPLERS, (view, mean, adjoint)))
+
+
+def small_supervised_cfg():
+    """``small_cfg`` as the supervised baseline: RootNet on all 15
+    channels, K = 4 candidates (THRESHOLD -100), a trainable backbone."""
+    cfg = small_cfg()
+    return dataclasses.replace(
+        cfg, MODEL="multi_person_posenet",
+        NETWORK=dataclasses.replace(cfg.NETWORK, ROOTNET_ROOTHM=False, TRAIN_BACKBONE=True))
+
+
+def snapshot(model):
+    return {n: [p.detach().clone() for p in m.parameters()] for n, m in model.named_children()}
+
+
+def moved(model, before):
+    """The sub-networks whose parameters changed since ``before``."""
+    return sorted(n for n, ps in before.items()
+                  if any(not torch.equal(a, b.detach())
+                         for a, b in zip(ps, getattr(model, n).parameters())))
+
+
+@torch.no_grad()
+def gt_at_proposals(model, branch, slots=((0, 0, 2), (0, 1, 5), (1, 1, 1))):
+    """The branch with GT people moved next to the model's train-mode
+    proposals, each (sample, person, candidate slot) of ``slots`` 100 mm
+    from its slot (roots_3d and the person's joints_3d): random weights
+    propose nothing near the scene's people, and this way the GT matching
+    assigns a later slot while leaving earlier ones invalid, and PoseNet
+    has a gradient. The proposals do not depend on the GT. The model's
+    state is as before."""
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    _, _, gc, _ = model(branch, train=True)
+    model.load_state_dict(start)
+    roots, joints = branch.roots_3d.clone(), branch.joints_3d.clone()
+    for b, p, k in slots:
+        new = gc[b, k, :3] + torch.tensor([100.0, 0.0, 0.0], device=gc.device)
+        joints[b, p] += new - roots[b, p]
+        roots[b, p] = new
+    return dataclasses.replace(branch, roots_3d=roots, joints_3d=joints)
+
+
+def timed_steps(run, steps, expect):
+    """``steps`` calls of the train step ``run()``, each synchronised and
+    timed by the host clock, with the kernels' launch counts set to 0
+    before it and held to ``expect`` after; -> (ms of each, the finite
+    metrics of each)."""
+    times, metrics = [], []
+    for _ in range(steps):
+        slicewarp.reset_launches()
+        t0 = time.perf_counter()
+        m = run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        got = dict(slicewarp.LAUNCHES)
+        assert got == expect, (got, expect)
+        metrics.append({k: float(v) for k, v in m.items()})
+        assert all(math.isfinite(v) for v in metrics[-1].values()), metrics[-1]
+    return times, metrics
+
+
+def supervised_train(cfg, branch, steps, expect, warmup=True):
+    """``steps`` timed supervised train steps (after one warm-up step) of a
+    fresh model from seed 0, the GT moved onto its proposals unless USE_GT;
+    every step's kernel launches held to ``expect`` (``timed_steps``)."""
+    model = get_model(cfg, device="cuda", seed=0)
+    state = create_train_state(cfg, model)
+    step = make_supervised_train_step(model)
+    if not cfg.NETWORK.USE_GT:
+        branch = gt_at_proposals(model, branch)
+    before = snapshot(model)
+    if warmup:
+        step(state, branch)  # cuDNN algorithm selection
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = timed_steps(lambda: step(state, branch), steps, expect)
+    ms = sum(times) / steps
+    report = {"batch": branch.batch_size, "steps_timed": steps, "warm_up_step": warmup,
+              "ms_per_step": ms, "ms_each": times,
+              "samples_per_s": branch.batch_size * 1e3 / ms,
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "launches_per_step": expect, "losses_each_step": losses,
+              "moved": moved(model, before)}
+    return model, branch, report
+
+
+def phase_supervised():
+    """The supervised baseline (configs/panoptic/resnet50/prn64_...yaml) at
+    full width: ResNet-50, 5 views at 960x512, the 80x80x20 root space
+    (RootNet on all 15 channels, not detached), 64^3 cubes, K = 10,
+    TRAIN.BATCH_SIZE 2, bf16 (the Config default), random weights from
+    seed 0, a 3-person synthetic scene. Train steps as the YAML stands
+    (frozen backbone), with NETWORK.TRAIN_BACKBONE true (loss_3d reaches
+    the backbone through RootNet's sampler adjoint), and one under
+    NETWORK.USE_GT; the forward at TEST.BATCH_SIZE 4; the small float32
+    model on the card against the CPU. Returns what the kernels phase
+    prices at these shapes."""
+    base = yaml_cfg(SUPERVISED_YAML)
+    B, Bt = base.TRAIN.BATCH_SIZE, base.TEST.BATCH_SIZE
+    V = base.DATASET.CAMERA_NUM
+    branch = make_synthetic_branch(base, batch_size=B, num_person=3, seed=0, device="cuda")[0]
+    report = {"config": SUPERVISED_YAML, "dtype": base.DTYPE}
+
+    # 1. as the YAML stands: PoseNet samples through the fused kernel
+    model, matched, r = supervised_train(base, branch, 3, sampler_counts(V, 1, 0))
+    assert r["moved"] == ["pose_net", "root_net"], r["moved"]
+    report["yaml"] = {"changed": {}, **r}
+
+    # the forward at TEST.BATCH_SIZE, no autograd
+    br_test = make_synthetic_branch(base, batch_size=Bt, num_person=3, seed=1, device="cuda")[0]
+    with torch.no_grad():
+        model(br_test, train=False)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reps, t0 = 3, time.perf_counter()
+        for _ in range(reps):
+            model(br_test, train=False)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / reps * 1e3
+        slicewarp.reset_launches()
+        pred, hm, gc, losses = model(br_test, train=False)
+        torch.cuda.synchronize()
+    got = dict(slicewarp.LAUNCHES)
+    assert got == sampler_counts(V, 1, 0), got
+    K, J = base.MULTI_PERSON.MAX_PEOPLE_NUM, base.NETWORK.NUM_JOINTS
+    assert pred.shape == (Bt, K, J, 5) and gc.shape == (Bt, K, 5), (pred.shape, gc.shape)
+    assert hm.shape == (Bt, V, *base.NETWORK.HEATMAP_SIZE[::-1], J), hm.shape
+    for t in (pred, hm, gc, *losses.values()):
+        assert torch.isfinite(t).all()
+    report["inference"] = {
+        "batch": Bt, "ms_per_batch": ms, "frames_per_s": Bt * 1e3 / ms,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "launches": got,
+        "candidates_run": model.pose_net.bucket(gc),
+        "valid_candidates": int((gc[..., 3] >= 0).sum()),
+        "losses": {k: float(v) for k, v in losses.items()}}
+    kernel_inputs = {"branch": matched, "rootnet": model.root_net, "test_branch": br_test,
+                     "test_gc": gc, "pose_net": model.pose_net}
+    del model, pred, hm, losses
+    torch.cuda.empty_cache()
+
+    # 2. the backbone trains: RootNet's and PoseNet's samplers both carry a
+    # gradient back to the heatmaps
+    cfg = yaml_cfg(SUPERVISED_YAML, TRAIN_BACKBONE=True)
+    model, _, r = supervised_train(cfg, branch, 3, sampler_counts(2 * V, 0, 2 * V))
+    assert r["moved"] == ["backbone", "pose_net", "root_net"], r["moved"]
+    report["train_backbone"] = {"changed": {"NETWORK.TRAIN_BACKBONE": True}, **r}
+    del model
+    torch.cuda.empty_cache()
+
+    # 3. USE_GT: every GT person is a candidate, so loss_cord > 0
+    cfg = yaml_cfg(SUPERVISED_YAML, USE_GT=True)
+    model, _, r = supervised_train(cfg, branch, 1, sampler_counts(0, 1, 0), warmup=False)
+    assert r["losses_each_step"][0]["loss_cord"] > 0, r["losses_each_step"]
+    assert r["moved"] == ["pose_net"], r["moved"]
+    report["use_gt"] = {"changed": {"NETWORK.USE_GT": True}, **r}
+    del model
+    torch.cuda.empty_cache()
+
+    report["small_f32_card_vs_cpu"] = supervised_parity()
+    emit({"phase": "supervised", **report})
+    paths = {"supervised step": report["yaml"]["launches_per_step"],
+             "supervised step, TRAIN_BACKBONE": report["train_backbone"]["launches_per_step"],
+             "supervised step, USE_GT": report["use_gt"]["launches_per_step"],
+             "supervised forward": report["inference"]["launches"]}
+    return kernel_inputs, paths
+
+
+def supervised_parity():
+    """The small float32 supervised model (``small_supervised_cfg``) on
+    the card against the CPU, same weights, the GT moved onto the CPU's
+    proposals: the eval-mode forward (flags equal, proposals to 1e-3 mm,
+    poses < 1 mm, losses rel 1e-4) and the train-mode one (batch-statistics
+    BatchNorm, GT matching: flags equal, proposals to 1e-3 mm, losses rel
+    1e-3)."""
+    cfg = small_supervised_cfg()
+    cpu = randomize(get_model(cfg, device="cpu"), seed=3)
+    gpu = get_model(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    br = make_synthetic_branch(cfg, batch_size=2, num_person=3, seed=1, device="cpu")[0]
+    br = gt_at_proposals(cpu, br, slots=((0, 0, 1), (0, 1, 3), (1, 2, 2)))
+    out = {}
+    for train in (False, True):
+        with torch.no_grad():
+            pc, _, gcc, lc = cpu(br, train=train)
+            pg, _, gcg, lg = (x if isinstance(x, dict) else x.cpu()
+                              for x in gpu(br.to("cuda"), train=train))
+        assert torch.equal(gcg[..., 3], gcc[..., 3]), (gcg[..., 3], gcc[..., 3])
+        loss_rel = {k: _rel(float(lc[k]), float(lg[k])) for k in lc}
+        loc_err = float((gcg[..., :3] - gcc[..., :3]).abs().max())
+        pose_err = float((pg[..., :3] - pc[..., :3]).norm(dim=-1).max())
+        out["train_mode" if train else "eval_mode"] = {
+            "loss_max_rel_err": max(loss_rel.values()), "losses_card": {
+                k: float(v) for k, v in lg.items()},
+            "proposal_max_abs_err_mm": loc_err, "pose_max_err_mm": pose_err,
+            "valid_candidates": int((gcc[..., 3] >= 0).sum())}
+        assert max(loss_rel.values()) <= (1e-3 if train else 1e-4), loss_rel
+        assert loc_err <= 1e-3, loc_err
+        if not train:
+            assert pose_err < 1.0, pose_err
+    assert out["train_mode"]["losses_card"]["loss_cord"] > 0, out
+    return out
+
+
+def phase_stages():
+    """The paper's SSL stages 1 and 2 at full width, random weights from
+    seed 0: stage 1 (backbone_pseudo_hrnet_soft_9videos.yaml, the
+    supervised model under TRAIN_ONLY_2D) at its TRAIN.BATCH_SIZE 4, two
+    steps: only the backbone moves and no sampler runs; stage 2
+    (cam5_rootnet.yaml, the SSV model under TRAIN_ONLY_ROOTNET, frozen
+    backbone) at its batch 1, a warm-up and three steps with the synthetic
+    roots drawn from a seeded generator: only RootNet moves, its main and
+    synthetic passes launching sample_view once a view each, no adjoint
+    (the root channel is detached)."""
+    report = {}
+    cfg = yaml_cfg(STAGE1_YAML)
+    B = cfg.TRAIN.BATCH_SIZE
+    model = get_model(cfg, device="cuda", seed=0)
+    assert [n for n, _ in model.named_children()] == ["backbone"]
+    state = create_train_state(cfg, model)
+    step = make_supervised_train_step(model)
+    br = make_synthetic_branch(cfg, batch_size=B, num_person=3, seed=0, device="cuda")[0]
+    before = snapshot(model)
+    torch.cuda.reset_peak_memory_stats()
+    expect = sampler_counts(0, 0, 0)
+    times, losses = timed_steps(lambda: step(state, br), 2, expect)
+    assert set(losses[-1]) == {"loss_2d", "loss"}, sorted(losses[-1])
+    assert moved(model, before) == ["backbone"], moved(model, before)
+    report["stage1"] = {"config": STAGE1_YAML, "model": cfg.MODEL, "batch": B,
+                        "ms_each": times, "ms_second_step": times[1],
+                        "samples_per_s": B * 1e3 / times[1],
+                        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                        "launches_per_step": expect, "losses": losses[-1],
+                        "moved": moved(model, before)}
+    del model, state, step, br, before
+    torch.cuda.empty_cache()
+
+    cfg = yaml_cfg(STAGE2_YAML)
+    B, V = cfg.TRAIN.BATCH_SIZE, cfg.DATASET.CAMERA_NUM
+    model = get_model(cfg, device="cuda", seed=0)
+    assert [n for n, _ in model.named_children()] == ["backbone", "root_net"]
+    state = create_train_state(cfg, model)
+    step = make_ssv_train_step(model, train_posenet_stage=True, use_l1_stage=True)
+    brs = train_branches(cfg, B, seed=0, device="cuda")
+    gen = torch.Generator().manual_seed(0)
+    before = snapshot(model)
+    step(state, *brs, generator=gen)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    expect = sampler_counts(2 * V, 0, 0)
+    times, losses = timed_steps(lambda: step(state, *brs, generator=gen), 3, expect)
+    assert set(losses[-1]) == {"loss_2d", "loss_root_syn", "loss_root_reg", "loss"}, \
+        sorted(losses[-1])
+    assert moved(model, before) == ["root_net"], moved(model, before)
+    ms = sum(times) / 3
+    report["stage2"] = {"config": STAGE2_YAML, "model": cfg.MODEL, "batch": B,
+                        "ms_each": times, "ms_per_step": ms, "samples_per_s": B * 1e3 / ms,
+                        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                        "launches_per_step": expect, "losses": losses[-1],
+                        "moved": moved(model, before)}
+    del model, state, step, brs
+    torch.cuda.empty_cache()
+    emit({"phase": "stages", **report})
+    return report
+
+
+def identity_bar(hm, px, py, cot):
+    """The bar of the inner-product identity <sample_view(h), g> == <h,
+    adjoint(g)> (tests/test_torch_cuda.py ``_identity_bar``): 1e-5 of the
+    float64 sum of |w_tap * h * g| over all points, taps and channels,
+    which bounds the float32 atomic-order error of the adjoint."""
+    terms = slicewarp.sample_view_plain(hm.double().abs(), px, py) * cot.double().abs()
+    return 1e-5 * float(terms.sum())
+
+
+def whole_space_points(root_net, br, heatmap_wh, view=0):
+    """RootNet's sample points of one view over its whole space: pixel
+    coordinates px, py (B, N), the normalised grid F.grid_sample takes
+    (B, 1, N, 2) and the in-image mask (B, N); consecutive points walk z,
+    then y, then x of the grid."""
+    W, H = heatmap_wh
+    grid = compute_grid(root_net.space_size,
+                        torch.tensor(root_net.space_center, device=br.trans.device),
+                        root_net.cube_size)
+    sg, inside = compute_sample_grid(grid[None, None], br.cam, br.trans, root_net.image_wh,
+                                     (W, H), br.orig_wh)
+    px, py = (t[:, view].contiguous() for t in to_pixels(sg, (W, H)))
+    return px, py, sg[:, view, None].contiguous(), inside[:, view].contiguous()
+
+
+def phase_kernels_supervised(rows, sup, path_launches):
+    """The three samplers at the supervised path's shapes, each against its
+    plain version on the card, timed beside it, its bound (bytes, as the
+    rows above are priced) and a library call: sample_view at RootNet's
+    whole space with all 15 channels (B = 2, N = 128,000, on 240x128; the
+    channel-padded copy), its adjoint on a dense cotangent at the same
+    shape (float64 plain 1e-5 of its largest entry, and the identity bar),
+    and sample_views_mean on the supervised forward's 64^3 cubes of every
+    candidate at TEST.BATCH_SIZE. Adds them to ``rows`` (sample_view,
+    sample_views_mean, sample_view_adjoint), with each path's launches."""
+    cfg = yaml_cfg(SUPERVISED_YAML)
+    W, H = cfg.NETWORK.HEATMAP_SIZE
+    J = cfg.NETWORK.NUM_JOINTS
+    br = sup["branch"]
+    B = br.batch_size
+    dev = br.trans.device
+    g = torch.Generator(device=dev).manual_seed(1)
+    px, py, lib_grid, _ = whole_space_points(sup["rootnet"], br, (W, H))
+    N = px.shape[1]
+    hm = torch.rand(B, H, W, J, generator=g, device=dev)
+    padded = build.library("slicewarp").sp3d_forward_scratch_floats(
+        hm.data_ptr(), 0, B, 1, H, W, J)
+    got = slicewarp.sample_view(hm, px, py)
+    err = float((got - slicewarp.sample_view_plain(hm, px, py)).abs().max())
+    assert err <= 1e-5, ("sample_view, RootNet J=15", err)
+    hm_nchw = hm.permute(0, 3, 1, 2).contiguous()
+    lib_err = float((torch.nn.functional.grid_sample(hm_nchw, lib_grid, align_corners=True)
+                     [:, :, 0].permute(0, 2, 1) - got).abs().max())
+    bms, by = bound(4 * (B * H * W * J + 2 * B * N + B * N * J), B * N * (8 * J + 12))
+    rows[0]["supervised_rootnet_j15"] = {
+        "shapes": {"hm": [B, H, W, J], "points": [B, N]}, "channel_padded_copy": padded > 0,
+        "max_abs_err": err, "bound_ms": bms, "bound_by": by,
+        "ms": cuda_ms(lambda: slicewarp.sample_view(hm, px, py), 50),
+        "plain_ms": cuda_ms(lambda: slicewarp.sample_view_plain(hm, px, py), 5),
+        "library_ms": cuda_ms(lambda: torch.nn.functional.grid_sample(
+            hm_nchw, lib_grid, align_corners=True), 50),
+        "library_max_abs_err": lib_err}
+
+    # the adjoint on a dense cotangent: RootNet's loss_3d is an MSE over
+    # every voxel, so no row of points is zero
+    cot = torch.randn(B, N, J, generator=g, device=dev)
+    got = slicewarp.sample_view_adjoint(cot, px, py, (H, W))
+    plain64 = slicewarp.sample_view_adjoint_plain(cot.double(), px, py, (H, W))
+    peak = float(plain64.abs().max())
+    err = float((got.double() - plain64).abs().max())
+    del plain64
+    assert err <= 1e-5 * peak, ("sample_view_adjoint, RootNet J=15 dense", err, peak)
+    lhs = float((slicewarp.sample_view(hm, px, py).double() * cot.double()).sum())
+    rhs = float((hm.double() * got.double()).sum())
+    bar = identity_bar(hm, px, py, cot)
+    assert abs(lhs - rhs) <= bar, ("adjoint identity", lhs, rhs, bar)
+    hm_req = hm_nchw.clone().requires_grad_()
+    lib_out = torch.nn.functional.grid_sample(hm_req, lib_grid, align_corners=True)
+    cot_lib = cot.permute(0, 2, 1)[:, :, None].contiguous()  # (B, J, 1, N)
+    lib_grad = torch.autograd.grad(lib_out, hm_req, cot_lib, retain_graph=True)[0]
+    lib_err = float((lib_grad.permute(0, 2, 3, 1) - got).abs().max())
+    bms, by = bound(4 * (B * N * J + 2 * B * N + B * H * W * J), B * N * (8 * J + 12))
+    rows[2]["supervised_rootnet_j15_dense"] = {
+        "shapes": {"g": [B, N, J], "hm": [B, H, W, J]}, "max_abs_err_vs_float64_plain": err,
+        "max_abs_grad": peak, "identity_abs_err": abs(lhs - rhs), "identity_bar": bar,
+        "bound_ms": bms, "bound_by": by,
+        "ms": cuda_ms(lambda: slicewarp.sample_view_adjoint(cot, px, py, (H, W)), 20),
+        "plain_ms": cuda_ms(lambda: slicewarp.sample_view_adjoint_plain(cot, px, py, (H, W)), 5),
+        "library_ms": cuda_ms(lambda: torch.autograd.grad(
+            lib_out, hm_req, cot_lib, retain_graph=True)[0], 10),
+        "library": "torch.autograd.grad of F.grid_sample(align_corners=True) w.r.t. its input",
+        "library_max_abs_err": lib_err}
+    del cot, got, hm, hm_nchw, hm_req, lib_out, lib_grad, cot_lib, px, py, lib_grid
+
+    # sample_views_mean on the supervised forward's cubes (every candidate:
+    # the YAML sets no candidate buckets), bf16 out
+    br, gc, pn = sup["test_branch"], sup["test_gc"], sup["pose_net"]
+    B, V = br.trans.shape[:2]
+    k = pn.bucket(gc)
+    grids = compute_grid(pn.grid_size, gc[:, :k, :3], pn.cube_size).reshape(B, -1, 3)
+    sg, bnd = compute_sample_grid(grids[:, None], br.cam, br.trans, pn.image_wh, (W, H),
+                                  br.orig_wh)
+    px, py = to_pixels(sg, (W, H))
+    del sg, grids
+    N = px.shape[-1]
+    hm = torch.rand(B, V, H, W, J, generator=g, device=dev)
+    out = torch.bfloat16
+    err = float((slicewarp.sample_views_mean(hm, px, py, bnd, out).float()
+                 - slicewarp.sample_views_mean_plain(hm, px, py, bnd, out).float()).abs().max())
+    assert err <= 4e-3, ("sample_views_mean, supervised", err)
+    bms, by = bound(4 * (B * V * H * W * J + 3 * B * V * N) + 2 * B * N * J,
+                    B * N * (V * (8 * J + 12) + 3 * J))
+    hm_views = hm.reshape(B * V, H, W, J).permute(0, 3, 1, 2)
+    grid_views = torch.stack([px / (W - 1) * 2 - 1, py / (H - 1) * 2 - 1], -1).reshape(
+        B * V, 1, N, 2)
+    sampling_ms = cuda_ms(lambda: torch.nn.functional.grid_sample(
+        hm_views, grid_views, align_corners=True), 3)
+    del hm_views, grid_views
+    rows[1]["supervised_inference"] = {
+        "shapes": {"hm": [B, V, H, W, J], "points": [B, V, N], "candidates": k, "out": "bf16"},
+        "max_abs_err": err, "bound_ms": bms, "bound_by": by,
+        "ms": cuda_ms(lambda: slicewarp.sample_views_mean(hm, px, py, bnd, out), 10),
+        "plain_ms": cuda_ms(lambda: slicewarp.sample_views_mean_plain(hm, px, py, bnd, out), 2),
+        "library_ms": None, "library_sampling_only_ms": sampling_ms}
+    del hm, px, py, bnd
+    torch.cuda.empty_cache()
+    for row in rows[:3]:
+        row["launches_per_path"] = {path: counts[row["name"]]
+                                    for path, counts in path_launches.items()}
+
+
 def phase_kernels(model, br, gc, launches, train_model, train_brs, train_launches):
     """Each kernel at the main path's shapes and on its sample points (the
     flagship scene's projected grids, rebuilt from the same seeded run),
@@ -850,13 +1286,21 @@ def main() -> int:
         return 2
     t0 = time.perf_counter()
     phase_card()
-    model, launches, br, gc = phase_main()
+    model, launches_main, br, gc = phase_main()
     phase_geometry(model)
     phase_parity()
     train_model, train_brs, train_launches = phase_train()
     phase_train_parity()
-    rows = phase_kernels(model, br, gc, launches, train_model, train_brs, train_launches)
+    sup, paths = phase_supervised()
+    stages = phase_stages()
+    paths = {"do_inference": launches_main, "SSV train step": train_launches, **paths,
+             "stage 1 step": stages["stage1"]["launches_per_step"],
+             "stage 2 step": stages["stage2"]["launches_per_step"]}
+    rows = phase_kernels(model, br, gc, launches_main, train_model, train_brs, train_launches)
     del model, br, gc, train_model, train_brs
+    torch.cuda.empty_cache()
+    phase_kernels_supervised(rows, sup, paths)
+    del sup
     torch.cuda.empty_cache()
     rows += phase_microbench()
     for row in rows:

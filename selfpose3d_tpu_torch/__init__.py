@@ -8,12 +8,14 @@ to find, and it imports nothing of JAX or of ``selfpose3d_tpu``:
   geometry/   camera projection, affine transforms, voxel grids
   data/       AugBranch batch structure, synthetic Panoptic-like scenes
   ops/        sampling (plain + hand-written CUDA kernels, forward and
-              adjoint), unprojection, proposals, soft-argmax, Gaussian
-              rendering, Hungarian matching
+              adjoint), unprojection, proposals and their GT matching,
+              soft-argmax, Gaussian rendering, Hungarian matching
   models/     PoseResNet, attention net, V2VNet, RootNet, PoseNet,
-              MultiPersonPoseNetSSV (inference and the SSV losses)
+              MultiPersonPoseNetSSV (inference, the SSV losses and the SSL
+              stage flags), MultiPersonPoseNet (the supervised baseline)
   train/      train state (Adam/SGD, frozen sub-networks), LR schedule,
-              the SSV train step
+              the SSV and supervised train steps, the inference step and
+              the SSV debug forward
   convert/    JAX parameter (or gradient) trees -> this package's state dicts
   microbench/ the measurement probes (3D conv, slice-warp variants,
               primitive rates), each with its CUDA kernel

@@ -127,9 +127,11 @@ def v2v_state_dict(params: Mapping, stats: Mapping, prefix: str = "") -> Dict[st
 
 
 def from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX ``MultiPersonPoseNetSSV`` variables -> ``MultiPersonPoseNetSSV``
-    state dict (backbone, attn, root_net, pose_net). Without
-    ``batch_stats`` (a gradient tree) only the parameters' names appear."""
+    """JAX ``MultiPersonPoseNetSSV`` or ``MultiPersonPoseNet`` variables ->
+    the state dict of the port's model of the same config: the
+    sub-networks present (backbone, attn, root_net, pose_net; the stage
+    flags leave some out). Without ``batch_stats`` (a gradient tree) only
+    the parameters' names appear."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
 

@@ -26,7 +26,8 @@ from selfpose3d_tpu_torch.geometry.transforms import (
     get_affine_transform_3x3,
     get_scale,
 )
-from selfpose3d_tpu_torch.ops.gaussian import render_gaussian_heatmaps
+from selfpose3d_tpu_torch.geometry.grid import grid_1d_axes
+from selfpose3d_tpu_torch.ops.gaussian import render_gaussian_cube_3d, render_gaussian_heatmaps
 
 
 def _look_at_rotation(cam_pos: np.ndarray, target: np.ndarray) -> np.ndarray:
@@ -106,7 +107,8 @@ def make_synthetic_branch(
 
     Returns (branch, gt_poses (B, P, J, 3)). Images are uniform noise;
     target heatmaps are rendered from the GT joints (sum -> clip
-    composite). ``target_3d`` is left empty: only training reads it.
+    composite); ``target_3d`` is the GT roots' 3D Gaussian cube over the
+    root space (MULTI_PERSON.INITIAL_CUBE_SIZE).
     """
     dev = resolve_device(device)
     V = cfg.DATASET.CAMERA_NUM
@@ -147,6 +149,14 @@ def make_synthetic_branch(
     )  # (B, V, J, H, W)
     target_2d = hm.permute(0, 1, 3, 4, 2).contiguous()
 
+    axes = grid_1d_axes(
+        cfg.MULTI_PERSON.SPACE_SIZE, cfg.MULTI_PERSON.SPACE_CENTER,
+        cfg.MULTI_PERSON.INITIAL_CUBE_SIZE,
+    )
+    target_3d = render_gaussian_cube_3d(
+        torch.from_numpy(roots).to(dev), *(torch.from_numpy(a).to(dev) for a in axes)
+    )  # (B, X, Y, Z)
+
     joints = torch.zeros((B, V, P, J, 2), dtype=torch.float32, device=dev)
     joints[:, :, :num_person] = pix
     joints_vis = torch.zeros((B, V, P, J, 2), dtype=torch.float32, device=dev)
@@ -173,6 +183,7 @@ def make_synthetic_branch(
         input_heatmaps=None if with_images else target_2d,
         target_2d=target_2d,
         weights_2d=torch.ones((B, V, J, 1), dtype=torch.float32, device=dev),
+        target_3d=target_3d,
         joints=joints,
         joints_vis=joints_vis,
         joints_3d=torch.from_numpy(joints_3d).to(dev),

@@ -8,13 +8,16 @@ import torch
 import torch.nn as nn
 
 from selfpose3d_tpu_torch.device import resolve_device
-from selfpose3d_tpu_torch.models.multi_person import MultiPersonPoseNetSSV
+from selfpose3d_tpu_torch.models.multi_person import MultiPersonPoseNet, MultiPersonPoseNetSSV
 from selfpose3d_tpu_torch.models.pose_net import PoseNet
 from selfpose3d_tpu_torch.models.pose_resnet import PoseResAttnNet, PoseResNet
-from selfpose3d_tpu_torch.models.root_net import RootNet
+from selfpose3d_tpu_torch.models.root_net import RootNet, SupervisedProposal
 from selfpose3d_tpu_torch.models.v2v_net import V2VNet
 
-_REGISTRY = {"multi_person_posenet_ssv": MultiPersonPoseNetSSV}
+_REGISTRY = {
+    "multi_person_posenet": MultiPersonPoseNet,
+    "multi_person_posenet_ssv": MultiPersonPoseNetSSV,
+}
 
 
 @torch.no_grad()
@@ -67,11 +70,13 @@ def get_model(cfg, device="cuda", dtype=None, seed: int = 0) -> nn.Module:
 
 
 __all__ = [
+    "MultiPersonPoseNet",
     "MultiPersonPoseNetSSV",
     "PoseNet",
     "PoseResAttnNet",
     "PoseResNet",
     "RootNet",
+    "SupervisedProposal",
     "V2VNet",
     "get_model",
     "init_weights",

@@ -1,14 +1,25 @@
-"""MultiPersonPoseNetSSV: the SelfPose3d model
-(ref: lib/models/multi_person_posenet_ssv.py:29-501).
+"""The top-level multi-person pose models.
 
-Per-view backbone heatmaps -> RootNet proposals -> per-candidate PoseNet
-(``do_inference``), and the six self-supervised loss terms of one train
-step (``ssv_losses``): the three augmentation branches are folded into the
-batch axis, as in ``selfpose3d_tpu.models.multi_person``, so the backbone
-runs once on 3B, the attention net once on 2B, RootNet main and synthetic
-passes on 3B and PoseNet once on 2B. Train-mode BatchNorm statistics pool
-over each fold. Every ``stop_gradient`` of the JAX package is a
-``detach()`` here.
+MultiPersonPoseNetSSV, the SelfPose3d model (ref:
+lib/models/multi_person_posenet_ssv.py:29-501): per-view backbone heatmaps
+-> RootNet proposals -> per-candidate PoseNet (``do_inference``), and the
+self-supervised loss terms of one train step (``ssv_losses``): the three
+augmentation branches are folded into the batch axis, as in
+``selfpose3d_tpu.models.multi_person``, so the backbone runs once on 3B,
+the attention net once on 2B, RootNet main and synthetic passes on 3B and
+PoseNet once on 2B. Train-mode BatchNorm statistics pool over each fold.
+The stage flags of the paper's three SSL stages (NETWORK.TRAIN_ONLY_2D,
+TRAIN_ONLY_ROOTNET, USE_GT, SINGLE_AUG_TRAINING_POSENET) select which
+sub-networks exist and which terms are computed.
+
+MultiPersonPoseNet, the supervised VoxelPose baseline (ref:
+lib/models/multi_person_posenet.py:20-111): one branch, 2D heatmap, 3D
+root-cube and GT-matched pose losses (``forward``).
+
+A sub-network the JAX model never calls under the flags is not built, so
+the state dict's keys are those ``convert/from_jax.py`` gives for the JAX
+variables. Every ``stop_gradient`` of the JAX package is a ``detach()``
+here.
 """
 
 from __future__ import annotations
@@ -27,6 +38,7 @@ from selfpose3d_tpu_torch.models.pose_resnet import PoseResAttnNet, PoseResNet
 from selfpose3d_tpu_torch.models.root_net import RootNet
 from selfpose3d_tpu_torch.ops.gaussian import render_gaussian_heatmaps
 from selfpose3d_tpu_torch.ops.matching import masked_assignment_cost
+from selfpose3d_tpu_torch.ops.proposal import match_proposals_to_gt
 
 
 def _mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -49,68 +61,98 @@ def cat_branches(*branches: AugBranch) -> AugBranch:
     return cat(*branches)
 
 
+def _backbone(c: Config, dtype: torch.dtype) -> PoseResNet:
+    return PoseResNet(
+        num_layers=c.POSE_RESNET.NUM_LAYERS,
+        num_joints=c.NETWORK.NUM_JOINTS,
+        deconv_filters=tuple(c.POSE_RESNET.NUM_DECONV_FILTERS),
+        deconv_kernels=tuple(c.POSE_RESNET.NUM_DECONV_KERNELS),
+        final_conv_kernel=c.POSE_RESNET.FINAL_CONV_KERNEL,
+        deconv_with_bias=c.POSE_RESNET.DECONV_WITH_BIAS,
+        dtype=dtype,
+    )
+
+
+def _root_net(c: Config, dtype: torch.dtype) -> RootNet:
+    return RootNet(
+        space_size=c.MULTI_PERSON.SPACE_SIZE,
+        space_center=c.MULTI_PERSON.SPACE_CENTER,
+        cube_size=c.MULTI_PERSON.INITIAL_CUBE_SIZE,
+        image_wh=c.NETWORK.IMAGE_SIZE,
+        in_channels=1 if c.NETWORK.ROOTNET_ROOTHM else c.NETWORK.NUM_JOINTS,
+        max_people=c.MULTI_PERSON.MAX_PEOPLE_NUM,
+        threshold=c.MULTI_PERSON.THRESHOLD,
+        syn_range=c.NETWORK.ROOTNET_SYN_RANGE,
+        hm_sigma=float(c.NETWORK.SIGMA),
+        dtype=dtype,
+    )
+
+
+def _pose_net(c: Config, dtype: torch.dtype) -> PoseNet:
+    return PoseNet(
+        grid_size=c.PICT_STRUCT.GRID_SIZE,
+        cube_size=c.PICT_STRUCT.CUBE_SIZE,
+        image_wh=c.NETWORK.IMAGE_SIZE,
+        num_joints=c.NETWORK.NUM_JOINTS,
+        beta=c.NETWORK.BETA,
+        buckets=tuple(c.MULTI_PERSON.CANDIDATE_BUCKETS),
+        dtype=dtype,
+    )
+
+
+def backbone_heatmaps(backbone: nn.Module, branch: AugBranch, fold: bool) -> torch.Tensor:
+    """Backbone -> (B, V, Hh, Wh, J) float32; the given heatmaps where the
+    branch has no images.
+
+    ``fold`` runs (B, V) as one batch, so train-mode BatchNorm statistics
+    pool over all of it; otherwise the views run one after another, so
+    only one view's activations are live at a time."""
+    if branch.views is None:
+        return branch.input_heatmaps
+    if fold:
+        B, V = branch.views.shape[:2]
+        hm = backbone(branch.views.flatten(0, 1))
+        return hm.reshape(B, V, *hm.shape[1:])
+    return torch.stack(
+        [backbone(branch.views[:, v]) for v in range(branch.views.shape[1])], dim=1
+    )
+
+
+def gt_grid_centers(branch: AugBranch, K: int) -> torch.Tensor:
+    """Candidate slots from the GT roots (ref: multi_person_posenet_ssv.py:124-131):
+    (B, K, 5), slot k holds GT root k with flag k and score 1 where
+    k < num_person, flag -1 and score 0 elsewhere."""
+    B = branch.batch_size
+    roots = branch.roots_3d[:, :K]
+    gc = roots.new_zeros((B, K, 5))
+    gc[:, : roots.shape[1], 0:3] = roots
+    slot = torch.arange(K, dtype=torch.float32, device=roots.device)[None]
+    is_person = slot < branch.num_person[:, None].to(torch.float32)
+    gc[:, :, 3] = torch.where(is_person, slot, torch.full_like(slot, -1.0))
+    gc[:, :, 4] = is_person.to(torch.float32)
+    return gc
+
+
 class MultiPersonPoseNetSSV(nn.Module):
     def __init__(self, cfg: Config, dtype: torch.dtype = torch.float32):
         super().__init__()
         c = cfg
         self.cfg = cfg
-        if c.NETWORK.USE_GT or c.NETWORK.TRAIN_ONLY_2D or c.NETWORK.TRAIN_ONLY_ROOTNET:
-            raise NotImplementedError(
-                "only the RootNet + PoseNet path (inference and SSV training) is ported"
-            )
-        J = c.NETWORK.NUM_JOINTS
         if c.BACKBONE_MODEL:
-            self.backbone = PoseResNet(
-                num_layers=c.POSE_RESNET.NUM_LAYERS,
-                num_joints=J,
-                deconv_filters=tuple(c.POSE_RESNET.NUM_DECONV_FILTERS),
-                deconv_kernels=tuple(c.POSE_RESNET.NUM_DECONV_KERNELS),
-                final_conv_kernel=c.POSE_RESNET.FINAL_CONV_KERNEL,
-                deconv_with_bias=c.POSE_RESNET.DECONV_WITH_BIAS,
-                dtype=dtype,
-            )
+            self.backbone = _backbone(c, dtype)
         if c.WITH_ATTN:
             self.attn = PoseResAttnNet(
-                num_layers=c.ATTN_NUM_LAYERS, num_joints=J, dtype=dtype
+                num_layers=c.ATTN_NUM_LAYERS, num_joints=c.NETWORK.NUM_JOINTS, dtype=dtype
             )
-        self.root_net = RootNet(
-            space_size=c.MULTI_PERSON.SPACE_SIZE,
-            space_center=c.MULTI_PERSON.SPACE_CENTER,
-            cube_size=c.MULTI_PERSON.INITIAL_CUBE_SIZE,
-            image_wh=c.NETWORK.IMAGE_SIZE,
-            in_channels=1 if c.NETWORK.ROOTNET_ROOTHM else J,
-            max_people=c.MULTI_PERSON.MAX_PEOPLE_NUM,
-            threshold=c.MULTI_PERSON.THRESHOLD,
-            syn_range=c.NETWORK.ROOTNET_SYN_RANGE,
-            hm_sigma=float(c.NETWORK.SIGMA),
-            dtype=dtype,
-        )
-        self.pose_net = PoseNet(
-            grid_size=c.PICT_STRUCT.GRID_SIZE,
-            cube_size=c.PICT_STRUCT.CUBE_SIZE,
-            image_wh=c.NETWORK.IMAGE_SIZE,
-            num_joints=J,
-            beta=c.NETWORK.BETA,
-            buckets=tuple(c.MULTI_PERSON.CANDIDATE_BUCKETS),
-            dtype=dtype,
-        )
+        if not (c.NETWORK.USE_GT or c.NETWORK.TRAIN_ONLY_2D):
+            self.root_net = _root_net(c, dtype)
+        if not (c.NETWORK.TRAIN_ONLY_2D or c.NETWORK.TRAIN_ONLY_ROOTNET):
+            self.pose_net = _pose_net(c, dtype)
 
     def heatmaps(self, branch: AugBranch, fold: bool = False) -> torch.Tensor:
-        """Backbone -> (B, V, Hh, Wh, J) float32.
-
-        Inference runs the views one after another, so only one view's
-        activations are live at a time. ``fold`` (training) runs (B, V) as
-        one batch, so train-mode BatchNorm statistics pool over all of it."""
-        if branch.views is None:
-            return branch.input_heatmaps
-        if fold:
-            B, V = branch.views.shape[:2]
-            hm = self.backbone(branch.views.flatten(0, 1))
-            return hm.reshape(B, V, *hm.shape[1:])
-        return torch.stack(
-            [self.backbone(branch.views[:, v]) for v in range(branch.views.shape[1])],
-            dim=1,
-        )
+        """Backbone -> (B, V, Hh, Wh, J) float32 (``backbone_heatmaps``);
+        ``fold`` in training."""
+        return backbone_heatmaps(getattr(self, "backbone", None), branch, fold)
 
     def attns(self, branch: AugBranch) -> torch.Tensor:
         """Attention net on the folded (B, V) batch -> (B, V, Hh, Wh, J) in [0, 1]."""
@@ -127,12 +169,16 @@ class MultiPersonPoseNetSSV(nn.Module):
         return heatmaps
 
     @torch.no_grad()
-    def do_inference(self, branch: AugBranch):
-        """-> (pred (B, K, J, 5), heatmaps (B, V, H, W, J), grid_centers (B, K, 5)).
+    def do_inference(self, branch: AugBranch, visualize_attn: bool = False):
+        """-> (pred (B, K, J, 5), heatmaps (B, V, H, W, J), grid_centers (B, K, 5)
+        [, attns (B, V, H, W, J) when ``visualize_attn``]).
 
-        pred[..., :3] are world-mm joints (zero for invalid candidates),
-        pred[..., 3:] each candidate's (flag, score). Always runs with the
-        running BatchNorm statistics: it puts the model in eval mode.
+        pred[..., :3] are world-mm joints (zero for invalid candidates, and
+        everywhere under TRAIN_ONLY_ROOTNET, TRAIN_ONLY_2D or
+        EVAL_ROOTNET_ONLY, where PoseNet does not run), pred[..., 3:] each
+        candidate's (flag, score); the candidates are the GT roots under
+        USE_GT or TRAIN_ONLY_2D. Always runs with the running BatchNorm
+        statistics: it puts the model in eval mode.
         """
         self.eval()
         c = self.cfg
@@ -140,16 +186,21 @@ class MultiPersonPoseNetSSV(nn.Module):
         B = heatmaps.shape[0]
         K = c.MULTI_PERSON.MAX_PEOPLE_NUM
         J = c.NETWORK.NUM_JOINTS
-        _, grid_centers = self.root_net(
-            self.root_heatmaps(heatmaps), branch.cam, branch.trans, branch.orig_wh
-        )
+        if c.NETWORK.USE_GT or c.NETWORK.TRAIN_ONLY_2D:
+            grid_centers = gt_grid_centers(branch, K)
+        else:
+            _, grid_centers = self.root_net(
+                self.root_heatmaps(heatmaps), branch.cam, branch.trans, branch.orig_wh
+            )
         pred = torch.zeros((B, K, J, 5), dtype=torch.float32, device=heatmaps.device)
         pred[..., 3:] = grid_centers[:, :, None, 3:]
-        if not c.EVAL_ROOTNET_ONLY:
+        if not (c.EVAL_ROOTNET_ONLY or c.NETWORK.TRAIN_ONLY_ROOTNET or c.NETWORK.TRAIN_ONLY_2D):
             poses, _ = self.pose_net(
                 heatmaps, branch.cam, branch.trans, branch.orig_wh, grid_centers
             )
             pred[..., 0:3] = poses
+        if visualize_attn:
+            return pred, heatmaps, grid_centers, self.attns(branch)
         return pred, heatmaps, grid_centers
 
     def _l1_matching_loss(
@@ -205,8 +256,10 @@ class MultiPersonPoseNetSSV(nn.Module):
             self.backbone.train(net_train and c.NETWORK.TRAIN_BACKBONE)
         if c.WITH_ATTN:
             self.attn.train(net_train)
-        self.root_net.train(net_train and not c.NETWORK.FREEZE_ROOTNET)
-        self.pose_net.train(net_train)
+        if hasattr(self, "root_net"):
+            self.root_net.train(net_train and not c.NETWORK.FREEZE_ROOTNET)
+        if hasattr(self, "pose_net"):
+            self.pose_net.train(net_train)
 
     def ssv_losses(
         self,
@@ -233,11 +286,16 @@ class MultiPersonPoseNetSSV(nn.Module):
         given values (parity tests). ``generator`` feeds the synthetic-root
         draws otherwise. Sets the sub-networks' train/eval modes.
 
-        Returns (pred2 (B, K, J, 5) or None, heatmaps3, grid_centers, losses).
+        The stage flags: TRAIN_ONLY_2D returns after ``loss_2d`` (no
+        prediction, no candidates); USE_GT takes branch 3's GT roots as the
+        candidates; TRAIN_ONLY_ROOTNET returns after RootNet;
+        SINGLE_AUG_TRAINING_POSENET runs PoseNet on branch 1 alone, against
+        its own pseudo heatmaps.
+
+        Returns (pred2 (B, K, J, 5) or None, heatmaps3, grid_centers or
+        None, losses).
         """
         c = self.cfg
-        if c.NETWORK.USE_GT or c.NETWORK.SINGLE_AUG_TRAINING_POSENET:
-            raise NotImplementedError("USE_GT / SINGLE_AUG_TRAINING_POSENET are not ported")
         losses: Dict[str, torch.Tensor] = {}
         B = branch1.batch_size
         net_train = train and not bn_eval
@@ -257,10 +315,14 @@ class MultiPersonPoseNetSSV(nn.Module):
         losses["loss_2d"] = (
             _mse(branches_all.target_2d, heatmaps_all) if branch1.target_2d is not None else zero
         )
+        if c.NETWORK.TRAIN_ONLY_2D:
+            return None, heatmaps3, None, losses
 
         # ---- RootNet (ref: :297-335)
         hm_wh = (heatmaps_all.shape[3], heatmaps_all.shape[2])
-        if c.NETWORK.FREEZE_ROOTNET:
+        if c.NETWORK.USE_GT:
+            grid_centers = gt_grid_centers(branch3, c.MULTI_PERSON.MAX_PEOPLE_NUM)
+        elif c.NETWORK.FREEZE_ROOTNET:
             with torch.no_grad():
                 _, grid_centers = self.root_net(
                     self.root_heatmaps(heatmaps3), branch3.cam, branch3.trans,
@@ -294,6 +356,8 @@ class MultiPersonPoseNetSSV(nn.Module):
                 # supervised 3D-cube loss variant (ref: :331-335)
                 tgt12 = torch.cat([branch1.target_3d, branch2.target_3d], dim=0)
                 losses["loss_root_reg"] = 2.0 * _mse(main12, tgt12)
+        if c.NETWORK.TRAIN_ONLY_ROOTNET:
+            return None, heatmaps3, grid_centers, losses
 
         # ---- PoseNet + cross-augmentation projection losses (ref: :340-499)
         K = c.MULTI_PERSON.MAX_PEOPLE_NUM
@@ -304,6 +368,30 @@ class MultiPersonPoseNetSSV(nn.Module):
         if not train_posenet_stage:
             losses["loss_pose3d_ssv"] = zero
             return None, heatmaps3, grid_centers, losses
+
+        def pred_out(pred):
+            """(B, Kp, J, 3) -> the detached (B, K, J, 5) prediction."""
+            out = torch.cat([pred, gc_pose[:, :, None, 3:].expand(B, Kp, J, 2)], dim=-1).detach()
+            if Kp < K:  # fixed (B, K, J, 5) output shape
+                out = torch.nn.functional.pad(out, (0, 0, 0, 0, 0, K - Kp))
+            return out
+
+        if c.NETWORK.SINGLE_AUG_TRAINING_POSENET:
+            # PoseNet on branch 1 alone, its projections against branch 1's
+            # own pseudo heatmaps: no attention weights, no L1 term
+            pred1, valid = self.pose_net(
+                heatmaps1, branch1.cam, branch1.trans, branch1.orig_wh, gc_pose,
+                hflip=branch1.hflip, bucketed=False,
+            )
+            any_valid = (valid.sum() > 0).to(torch.float32)
+            kps = project_points_with_trans(
+                pred1.reshape(B, 1, Kp * J, 3), branch1.cam, branch1.trans
+            ).reshape(B, V, Kp, J, 2)
+            hm11 = render_gaussian_heatmaps(
+                kps, hm_wh, sigma=3.0, coord_scale=0.25, mask=valid[:, None].expand(B, V, Kp),
+            ).permute(0, 1, 3, 4, 2)
+            losses["loss_pose3d_ssv"] = _mse(branch1.target_2d, hm11) * any_valid
+            return pred_out(pred1), heatmaps3, grid_centers, losses
 
         # one PoseNet pass over both augmented branches (2B)
         pred_12, valid_12 = self.pose_net(
@@ -342,10 +430,98 @@ class MultiPersonPoseNetSSV(nn.Module):
                 self._l1_matching_loss(kps12, valid, branch2.joints, branch2.joints_vis)
                 + self._l1_matching_loss(kps21, valid, branch1.joints, branch1.joints_vis)
             ) * c.L1_WEIGHT * any_valid
+        return pred_out(pred2), heatmaps3, grid_centers, losses
 
-        pred2_out = torch.cat(
-            [pred2, gc_pose[:, :, None, 3:].expand(B, Kp, J, 2)], dim=-1
-        ).detach()
-        if Kp < K:  # fixed (B, K, J, 5) output shape
-            pred2_out = torch.nn.functional.pad(pred2_out, (0, 0, 0, 0, 0, K - Kp))
-        return pred2_out, heatmaps3, grid_centers, losses
+
+class MultiPersonPoseNet(nn.Module):
+    """The supervised VoxelPose baseline (ref: lib/models/multi_person_posenet.py)."""
+
+    def __init__(self, cfg: Config, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        c = cfg
+        self.cfg = cfg
+        if c.BACKBONE_MODEL:
+            self.backbone = _backbone(c, dtype)
+        if not (c.NETWORK.USE_GT or c.NETWORK.TRAIN_ONLY_2D):
+            self.root_net = _root_net(c, dtype)
+        if not c.NETWORK.TRAIN_ONLY_2D:
+            self.pose_net = _pose_net(c, dtype)
+
+    def _set_modes(self, train: bool) -> None:
+        c = self.cfg
+        if c.BACKBONE_MODEL:
+            self.backbone.train(train and c.NETWORK.TRAIN_BACKBONE)
+        for net in ("root_net", "pose_net"):
+            if hasattr(self, net):
+                getattr(self, net).train(train)
+
+    def forward(self, branch: AugBranch, train: bool = False):
+        """-> (pred (B, K, J, 5) or None, heatmaps (B, V, H, W, J),
+        grid_centers (B, K, 5) or None, losses).
+
+        The loss terms: ``loss_2d``, the target-weighted heatmap MSE;
+        ``loss_3d``, the root cubes' MSE against ``target_3d`` (RootNet runs
+        on channel DATASET.ROOTIDX_PSEUDO under ROOTNET_ROOTHM, on all J
+        otherwise, and its heatmaps are not detached); in training,
+        ``loss_cord``, the visibility-weighted L1 of each valid candidate's
+        pose against the GT pose it was matched to, averaged over the valid
+        candidates. In training with GT the candidates' flags are their
+        matched GT indices (``match_proposals_to_gt``). TRAIN_ONLY_2D
+        returns after ``loss_2d``; USE_GT takes the GT roots as the
+        candidates. Sets the sub-networks' train/eval modes (the backbone
+        trains only under NETWORK.TRAIN_BACKBONE); autograd stays as the
+        caller has it.
+        """
+        c = self.cfg
+        self._set_modes(train)
+        heatmaps = backbone_heatmaps(getattr(self, "backbone", None), branch, fold=train)
+        B = heatmaps.shape[0]
+        losses: Dict[str, torch.Tensor] = {}
+        if branch.target_2d is None:
+            losses["loss_2d"] = heatmaps.new_zeros(())
+        elif branch.weights_2d is not None:
+            # per-joint MSE with target weights (ref: loss.py:39-55, model :50-55)
+            w = branch.weights_2d[:, :, None, None, :, 0]  # (B, V, 1, 1, J)
+            losses["loss_2d"] = torch.mean(((heatmaps - branch.target_2d) * w) ** 2)
+        else:
+            losses["loss_2d"] = _mse(heatmaps, branch.target_2d)
+        if c.NETWORK.TRAIN_ONLY_2D:
+            return None, heatmaps, None, losses
+
+        K = c.MULTI_PERSON.MAX_PEOPLE_NUM
+        J = c.NETWORK.NUM_JOINTS
+        if c.NETWORK.USE_GT:
+            grid_centers = gt_grid_centers(branch, K)
+        else:
+            rid = c.DATASET.ROOTIDX_PSEUDO
+            root_hm = heatmaps[..., rid : rid + 1] if c.NETWORK.ROOTNET_ROOTHM else heatmaps
+            root_cubes, grid_centers = self.root_net(
+                root_hm, branch.cam, branch.trans, branch.orig_wh
+            )
+            if branch.target_3d is not None:
+                losses["loss_3d"] = _mse(root_cubes, branch.target_3d)
+            if train and branch.roots_3d is not None and branch.num_person is not None:
+                flag = match_proposals_to_gt(
+                    grid_centers[..., :3], branch.roots_3d, branch.num_person
+                )
+                grid_centers = torch.cat(
+                    [grid_centers[..., :3], flag[..., None], grid_centers[..., 4:]], dim=-1
+                )
+
+        pred = torch.zeros((B, K, J, 5), dtype=torch.float32, device=heatmaps.device)
+        pred[..., 3:] = grid_centers[:, :, None, 3:]
+        # the candidate buckets cover the highest valid slot, so the holes
+        # the GT matching leaves are safe
+        poses, valid = self.pose_net(
+            heatmaps, branch.cam, branch.trans, branch.orig_wh, grid_centers
+        )
+        pred[..., 0:3] = poses.detach()
+
+        # weighted L1 against the matched GT poses (ref: multi_person_posenet.py:84-100)
+        if train and branch.joints_3d is not None:
+            gt_idx = grid_centers[..., 3].clamp(min=0).to(torch.int64)[..., None, None]
+            gt = torch.gather(branch.joints_3d, 1, gt_idx.expand(B, K, J, 3))
+            w = torch.gather(branch.joints_3d_vis[..., 0:1], 1, gt_idx.expand(B, K, J, 1))
+            per_cand = (poses * w - gt * w).abs().mean(dim=(-1, -2))  # (B, K)
+            losses["loss_cord"] = (per_cand * valid).sum() / valid.sum().clamp(min=1.0)
+        return pred, heatmaps, grid_centers, losses

@@ -5,6 +5,7 @@ kernel launch per view), V2VNet, then 3D max-pool NMS + top-K proposals.
 The SSV variant also trains on synthetically generated 3D roots rendered
 to per-view 2D Gaussians (``train_synth``, ref:
 cuboid_proposal_net_soft.py:151-241). BatchNorm follows ``module.training``.
+``SupervisedProposal`` gives the supervised baseline's GT-matched flags.
 """
 
 from __future__ import annotations
@@ -22,7 +23,12 @@ from selfpose3d_tpu_torch.ops.gaussian import (
     render_gaussian_cube_3d,
     render_gaussian_heatmaps,
 )
-from selfpose3d_tpu_torch.ops.proposal import proposals_soft
+from selfpose3d_tpu_torch.ops.proposal import (
+    match_proposals_to_gt,
+    nms_topk,
+    proposals_soft,
+    voxel_index_to_world,
+)
 from selfpose3d_tpu_torch.ops.unproject import unproject_heatmaps
 
 
@@ -164,3 +170,30 @@ class RootNet(nn.Module):
         cubes = self.unproject(heatmaps, cam, trans, orig_wh, hflip)
         root_cubes_syn = self.v2v_net(cubes)[..., 0]
         return root_cubes_syn, target_cubes
+
+
+class SupervisedProposal(nn.Module):
+    """GT-matched proposal flags of the supervised VoxelPose baseline
+    (ref: lib/models/cuboid_proposal_net.py:14-83), applied to RootNet's
+    detection volume. It has no parameters."""
+
+    def __init__(self, space_size, space_center, cube_size, max_people: int = 10,
+                 threshold: float = 0.1):
+        super().__init__()
+        self.space_size = tuple(float(s) for s in space_size)
+        self.space_center = tuple(float(s) for s in space_center)
+        self.cube_size = tuple(int(s) for s in cube_size)
+        self.max_people = max_people
+        self.threshold = threshold
+
+    def forward(self, root_cubes, gt_roots=None, num_person=None, training=False) -> torch.Tensor:
+        """root_cubes (B, X, Y, Z) -> grid_centers (B, K, 5): [x, y, z, flag,
+        score]. In training with GT the flag is the matched GT's index or
+        -1 (``match_proposals_to_gt``); otherwise 0 above ``threshold``, else -1."""
+        values, index = nms_topk(root_cubes.detach(), self.max_people)
+        loc = voxel_index_to_world(index, self.space_size, self.space_center, self.cube_size)
+        if training and gt_roots is not None and num_person is not None:
+            flag = match_proposals_to_gt(loc, gt_roots, num_person)
+        else:
+            flag = (values > self.threshold).to(torch.float32) - 1.0
+        return torch.cat([loc, flag[..., None], values[..., None]], dim=-1)

@@ -78,3 +78,29 @@ def proposals_soft(
     loc = voxel_index_to_world(index, space_size, space_center, cube_size)
     flag = (values > threshold).to(torch.float32) - 1.0
     return torch.cat([loc, flag[..., None], values[..., None]], dim=-1)
+
+
+def match_proposals_to_gt(
+    loc: torch.Tensor,
+    gt_roots: torch.Tensor,
+    num_person: torch.Tensor,
+    max_dist: float = 500.0,
+) -> torch.Tensor:
+    """Supervised candidate -> GT matching (ref: cuboid_proposal_net.py:25-40).
+
+    Args:
+      loc: (B, K, 3) candidate world locations.
+      gt_roots: (B, P, 3) padded GT roots.
+      num_person: (B,) valid person counts.
+    Returns:
+      (B, K) float32: the nearest valid GT's index (the first among equal
+      distances), or -1.0 when it lies farther than ``max_dist`` or no GT
+      is valid.
+    """
+    d = torch.sqrt(((loc[:, :, None, :] - gt_roots[:, None, :, :]) ** 2).sum(dim=-1))
+    P = gt_roots.shape[1]
+    valid = torch.arange(P, device=loc.device)[None, None, :] < num_person[:, None, None]
+    d = torch.where(valid, d, torch.full_like(d, float("inf")))
+    min_d = d.amin(dim=-1)
+    min_gt = torch.argmin(d, dim=-1).to(torch.float32)  # the first minimum, as jnp.argmin
+    return torch.where(min_d > max_dist, torch.full_like(min_d, -1.0), min_gt)

@@ -1,5 +1,10 @@
 from selfpose3d_tpu_torch.train.schedule import multistep_lr
-from selfpose3d_tpu_torch.train.step import make_ssv_train_step
+from selfpose3d_tpu_torch.train.step import (
+    make_inference_step,
+    make_ssv_debug_forward,
+    make_ssv_train_step,
+    make_supervised_train_step,
+)
 from selfpose3d_tpu_torch.train.train_state import (
     TrainState,
     create_train_state,
@@ -10,8 +15,11 @@ from selfpose3d_tpu_torch.train.train_state import (
 __all__ = [
     "TrainState",
     "create_train_state",
+    "make_inference_step",
     "make_optimizer",
+    "make_ssv_debug_forward",
     "make_ssv_train_step",
+    "make_supervised_train_step",
     "multistep_lr",
     "trainable_labels",
 ]

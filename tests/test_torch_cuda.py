@@ -566,3 +566,88 @@ def test_probe_kernels_raise_when_library_unbuilt(cuda, monkeypatch):
         sw_variants.sw_variant("full", hm, xs, xs)
     with pytest.raises(RuntimeError, match="not built"):
         primitives.primitive("gather", primitives.make_input("gather", cuda), 2)
+
+
+@pytest.mark.parametrize("cotangent", ["dense", "inside_only"])
+@pytest.mark.parametrize("view", [0, 3])
+def test_whole_space_samplers_at_15_channels(cuda, view, cotangent):
+    """The supervised RootNet's shapes: all 15 channels of (2, 128, 240)
+    heatmaps sampled over the whole 80x80x20 space (B = 2, N = 128,000, the
+    flagship cameras), through the channel-padded copy. The forward against
+    the plain version (1e-5); the adjoint on a dense cotangent (loss_3d is
+    an MSE over every voxel: no run of points is zero) and on one zero
+    outside the view's image, against the float64 plain version (1e-5 of
+    its largest entry) and the inner-product identity (``_identity_bar``)."""
+    from chip_smoke import SUPERVISED_YAML, whole_space_points, yaml_cfg
+    from selfpose3d_tpu_torch.data.synthetic import make_synthetic_branch
+    from selfpose3d_tpu_torch.models.root_net import RootNet
+
+    cfg = yaml_cfg(SUPERVISED_YAML)
+    W, H = cfg.NETWORK.HEATMAP_SIZE
+    J = cfg.NETWORK.NUM_JOINTS
+    br = make_synthetic_branch(cfg, batch_size=2, num_person=3, seed=0, device=cuda)[0]
+    rn = RootNet(cfg.MULTI_PERSON.SPACE_SIZE, cfg.MULTI_PERSON.SPACE_CENTER,
+                 cfg.MULTI_PERSON.INITIAL_CUBE_SIZE, cfg.NETWORK.IMAGE_SIZE)
+    px, py, _, inside = whole_space_points(rn, br, (W, H), view)
+    B, N = px.shape
+    assert N == 80 * 80 * 20
+    g = torch.Generator(device=cuda).manual_seed(10 * view + len(cotangent))
+    hm = torch.rand(B, H, W, J, generator=g, device=cuda)
+    lib = build.library("slicewarp")
+    assert lib.sp3d_forward_scratch_floats(hm.data_ptr(), 0, B, 1, H, W, J) > 0
+    before = dict(LAUNCHES)
+    got = sample_view(hm, px, py)
+    torch.cuda.synchronize()
+    assert LAUNCHES["sample_view"] == before["sample_view"] + 1
+    torch.testing.assert_close(got, sample_view_plain(hm, px, py), rtol=0, atol=1e-5)
+
+    cot = torch.randn(B, N, J, generator=g, device=cuda)
+    if cotangent == "inside_only":
+        cot *= inside[..., None]
+        assert 0 < float(inside.mean()) < 1
+    dhm = sample_view_adjoint(cot, px, py, (H, W))
+    torch.cuda.synchronize()
+    assert LAUNCHES["sample_view_adjoint"] == before["sample_view_adjoint"] + 1
+    want = sample_view_adjoint_plain(cot.double(), px, py, (H, W))
+    torch.testing.assert_close(dhm.double(), want, rtol=0, atol=1e-5 * float(want.abs().max()))
+    lhs = float((got.double() * cot.double()).sum())
+    rhs = float((hm.double() * dhm.double()).sum())
+    assert abs(lhs - rhs) <= _identity_bar(hm, px, py, cot)
+
+
+def test_supervised_train_step_on_card_matches_cpu(cuda):
+    """One supervised train step of the small float32 model (RootNet on all
+    15 channels, a trainable backbone), GT moved onto its proposals, on the
+    card against the same step on the CPU: the loss terms (rel 1e-3,
+    batch-statistics BatchNorm), both samplers of RootNet and PoseNet with
+    their adjoints launched once a view, and the same sub-networks moved."""
+    from chip_smoke import gt_at_proposals, moved, randomize, small_supervised_cfg, snapshot
+    from selfpose3d_tpu_torch.data.synthetic import make_synthetic_branch
+    from selfpose3d_tpu_torch.models import get_model
+    from selfpose3d_tpu_torch.train import create_train_state, make_supervised_train_step
+
+    cfg = small_supervised_cfg()
+    V = cfg.DATASET.CAMERA_NUM
+    cpu = randomize(get_model(cfg, device="cpu"), seed=3)
+    gpu = get_model(cfg, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    br = make_synthetic_branch(cfg, batch_size=2, num_person=3, seed=1, device="cpu")[0]
+    br = gt_at_proposals(cpu, br, slots=((0, 0, 1), (0, 1, 3), (1, 2, 2)))
+    out = {}
+    for name, model, b in (("cpu", cpu, br), ("card", gpu, br.to(cuda))):
+        before = snapshot(model)
+        state = create_train_state(cfg, model)
+        start = dict(LAUNCHES)
+        metrics = make_supervised_train_step(model)(state, b)
+        if name == "card":
+            torch.cuda.synchronize()
+            assert LAUNCHES["sample_view"] == start["sample_view"] + 2 * V
+            assert LAUNCHES["sample_view_adjoint"] == start["sample_view_adjoint"] + 2 * V
+            assert LAUNCHES["sample_views_mean"] == start["sample_views_mean"]
+        out[name] = ({k: float(v) for k, v in metrics.items()}, moved(model, before))
+    (lc, mc), (lg, mg) = out["cpu"], out["card"]
+    assert set(lc) == set(lg) == {"loss_2d", "loss_3d", "loss_cord", "loss"}
+    assert lc["loss_cord"] > 0
+    for k in lc:
+        assert abs(lg[k] - lc[k]) <= 1e-3 * abs(lc[k]), (k, lg[k], lc[k])
+    assert mc == mg == ["backbone", "pose_net", "root_net"]
