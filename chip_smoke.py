@@ -46,7 +46,23 @@ Phases, each printing one JSON line:
               runs; cam5_rootnet.yaml (TRAIN_ONLY_ROOTNET) at batch 1, three
               steps after a warm-up, only RootNet moves, 10 sample_view
               launches a step and no adjoint;
-  9. kernels  each kernel at its main path's shapes and sample points (with
+  9. engine   the training engine on synthetic scenes: (a) cam5_posenet.yaml
+              at its full width (ResNet-50, 5 x 960x512, bf16, train batch
+              1, test batch 4, WORKERS 6) on the synthetic datasets with
+              THRESHOLD -100 (as phase train) and PRINT_FREQ 1 (every
+              step timed): one train_epoch_ssv of 6 frames, validate_3d on
+              8 frames, save_checkpoint, load_checkpoint into a fresh model
+              and train state (parameters, BatchNorm statistics and Adam
+              moments bit-equal to the saved ones), one more epoch from
+              the resumed state; steps/s, the loop's data and batch times,
+              peak memory, the validation metrics and each sampler's
+              launches per train step and per validation batch, held as
+              derived from the config's flags; (b) run_convergence of
+              configs/synthetic/magnitude_ssv.yaml as it loads (ResNet-18,
+              3 x 256x128, rendered images, batch 4), 2 epochs of 16
+              frames, an evaluation after each: 8 steps, every loss series
+              finite, the launches of the whole run as derived;
+ 10. kernels  each kernel at its main path's shapes and sample points (with
               seeded uniform heatmaps), held against its plain version,
               timed beside it, beside its bound, and beside one PyTorch
               library call where one computes the same function (for
@@ -58,9 +74,14 @@ Phases, each printing one JSON line:
               of a train step; then the three samplers at the supervised
               path's shapes (sample_view and its adjoint, on a dense
               cotangent, at RootNet's whole space with J = 15;
-              sample_views_mean on the supervised forward's cubes), and
+              sample_views_mean on the supervised forward's cubes), then
+              at the magnitude run's (sample_view with J = 1 over RootNet's
+              whole 32x32x16 space for the 3-branch fold, with J = 15 and
+              its adjoint on a step-like cotangent over PoseNet's 16^3
+              cubes for the 2-branch fold, each a launch a view;
+              sample_views_mean on a validation batch's cubes), and
               every sampler's launches on each path;
- 10. microbench  the three measurement probes (selfpose3d_tpu_torch/
+ 11. microbench  the three measurement probes (selfpose3d_tpu_torch/
               microbench/: conv3, sw_variants, primitives) at their full
               shapes, each probe's measurement driven with its kernel's
               launch count set to 0 just before and read just after; then
@@ -84,6 +105,7 @@ import json
 import math
 import os
 import re
+import shutil
 import sys
 import time
 
@@ -93,6 +115,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from selfpose3d_tpu_torch.config import flagship_cfg, load_config  # noqa: E402
+from selfpose3d_tpu_torch.data.loader import collate_branch  # noqa: E402
+from selfpose3d_tpu_torch.data.registry import get_dataset  # noqa: E402
 from selfpose3d_tpu_torch.data.synthetic import make_synthetic_branch  # noqa: E402
 from selfpose3d_tpu_torch.models import get_model  # noqa: E402
 from selfpose3d_tpu_torch.models.multi_person import cat_branches  # noqa: E402
@@ -106,6 +130,9 @@ from selfpose3d_tpu_torch.microbench.common import (  # noqa: E402
     card_line, cuda_ms, sm_clock_max_mhz)
 from selfpose3d_tpu_torch.ops import build, slicewarp  # noqa: E402
 from selfpose3d_tpu_torch.ops.unproject import compute_sample_grid, to_pixels  # noqa: E402
+from selfpose3d_tpu_torch.train import checkpoint  # noqa: E402
+from selfpose3d_tpu_torch.train.convergence import report, run_convergence  # noqa: E402
+from selfpose3d_tpu_torch.train.loop import train_epoch_ssv, validate_3d  # noqa: E402
 
 # H100 SXM published peaks (HBM3 bandwidth, dense FP32 rate); shared
 # memory serves 32 four-byte loads a clock on each of the 132 SMs, at the
@@ -775,6 +802,171 @@ def phase_stages():
     return report
 
 
+FLAGSHIP_YAML = "configs/panoptic_ssl/resnet50/cam5_posenet.yaml"
+MAGNITUDE_YAML = "configs/synthetic/magnitude_ssv.yaml"
+
+
+def ssv_step_launches(cfg):
+    """Sampler launches of one SSV train step in the PoseNet stage, from the
+    flags: RootNet once a view over branch 3 when frozen, else over the
+    3-branch fold and again for the synthetic roots; PoseNet once a view
+    over the 2-branch fold; the adjoint behind PoseNet's when the backbone
+    trains (RootNet's heatmaps are detached under ROOTNET_ROOTHM)."""
+    V, n = cfg.DATASET.CAMERA_NUM, cfg.NETWORK
+    root = V if n.FREEZE_ROOTNET else V * (2 if n.ROOTNET_TRAIN_SYNTH else 1)
+    return sampler_counts(root + V, 0, V if n.TRAIN_BACKBONE else 0)
+
+
+def times(counts, n):
+    return {k: v * n for k, v in counts.items()}
+
+
+def finite_meters(meters):
+    vals = {k: m.avg for k, m in meters.items() if hasattr(m, "avg")}
+    assert all(math.isfinite(v) for v in vals.values()), vals
+
+
+def epoch_report(meters):
+    """steps/s, the loop's mean data and batch times (ms) and data share of
+    one epoch's ``meters_out``."""
+    return {"steps": meters["steps"], "seconds": meters["seconds"],
+            "steps_per_s": meters["steps"] / meters["seconds"],
+            "data_ms_mean": meters["data_time"].avg * 1e3,
+            "batch_ms_mean": meters["batch_time"].avg * 1e3,
+            "data_share": meters["data_time"].sum / meters["seconds"],
+            "losses": {k: m.avg for k, m in meters.items()
+                       if k.startswith("loss") and hasattr(m, "avg")}}
+
+
+def engine_flagship():
+    """(a): cam5_posenet.yaml at full width on the synthetic datasets."""
+    cfg = load_config(os.path.join(ROOT, FLAGSHIP_YAML), overrides={
+        "DATASET": {"TRAIN_DATASET": "synthetic", "TEST_DATASET": "synthetic"},
+        "MULTI_PERSON": {"THRESHOLD": -100.0}, "PRINT_FREQ": 1})
+    train_ds = get_dataset(cfg, cfg.DATASET.TRAIN_DATASET, cfg.DATASET.TRAIN_SUBSET, True)
+    test_ds = get_dataset(cfg, cfg.DATASET.TEST_DATASET, cfg.DATASET.TEST_SUBSET, False)
+    train_ds.num_frames, test_ds.num_frames = 6, 8
+    steps = len(train_ds) // cfg.TRAIN.BATCH_SIZE
+    batches = -(-len(test_ds) // cfg.TEST.BATCH_SIZE)
+    per_step, per_batch = ssv_step_launches(cfg), sampler_counts(cfg.DATASET.CAMERA_NUM, 1, 0)
+    model = get_model(cfg, device="cuda", seed=0)
+    state = create_train_state(cfg, model, steps)
+    torch.cuda.reset_peak_memory_stats()
+
+    slicewarp.reset_launches()
+    m0 = {}
+    train_epoch_ssv(cfg, model, state, train_ds, epoch=0, meters_out=m0)
+    got = dict(slicewarp.LAUNCHES)
+    assert m0["steps"] == steps and state.step == steps, (m0["steps"], state.step)
+    assert got == times(per_step, steps), (got, per_step)
+    finite_meters(m0)
+
+    slicewarp.reset_launches()
+    metrics = {}
+    t0 = time.perf_counter()
+    precision = validate_3d(cfg, model, test_ds, metrics_out=metrics)
+    val_s = time.perf_counter() - t0
+    got = dict(slicewarp.LAUNCHES)
+    assert got == times(per_batch, batches), (got, per_batch)
+    assert precision is not None and all(math.isfinite(a) for a in metrics["aps"])
+
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_engine")
+    path = checkpoint.save_checkpoint(out_dir, state, 1, precision, is_best=True)
+    fresh = get_model(cfg, device="cuda", seed=1)
+    resumed, epoch, _ = checkpoint.load_checkpoint(out_dir, create_train_state(cfg, fresh, steps))
+    assert epoch == 1 and resumed.step == state.step
+    for (k, a), b in zip(model.state_dict().items(), fresh.state_dict().values()):
+        assert b.device == a.device and torch.equal(a, b), k
+    saved, loaded = state.optimizer.state_dict()["state"], resumed.optimizer.state_dict()["state"]
+    assert saved and set(saved) == set(loaded)
+    moments = 0
+    for i in saved:
+        for name in ("exp_avg", "exp_avg_sq", "step"):
+            a, b = saved[i][name], loaded[i][name]
+            assert a.device == b.device and torch.equal(a, b), (i, name)
+            moments += 1
+    ckpt_bytes = os.path.getsize(path)
+    shutil.rmtree(out_dir)
+    n_tensors = len(model.state_dict())
+    n_stats = sum(1 for k in model.state_dict() if "running_" in k)
+    del model, state
+    torch.cuda.empty_cache()
+
+    slicewarp.reset_launches()
+    m1 = {}
+    train_epoch_ssv(cfg, fresh, resumed, train_ds, epoch=1, meters_out=m1)
+    got = dict(slicewarp.LAUNCHES)
+    assert got == times(per_step, steps) and resumed.step == 2 * steps, (got, resumed.step)
+    finite_meters(m1)
+    return per_step, per_batch, {
+        "config": FLAGSHIP_YAML, "changed": {
+            "DATASET.TRAIN_DATASET": "synthetic", "DATASET.TEST_DATASET": "synthetic",
+            "MULTI_PERSON.THRESHOLD": -100.0, "PRINT_FREQ": 1},
+        "dtype": cfg.DTYPE, "train_batch": cfg.TRAIN.BATCH_SIZE,
+        "test_batch": cfg.TEST.BATCH_SIZE, "workers": cfg.WORKERS,
+        "train_frames": len(train_ds), "test_frames": len(test_ds),
+        "epoch0": epoch_report(m0), "epoch1_resumed": epoch_report(m1),
+        "validation": {"batches": batches, "seconds": val_s, "precision": precision,
+                       **{k: metrics[k] for k in ("aps", "mpjpe", "recall500", "aps_root",
+                                                  "mpjpe_root", "recall500_root")}},
+        "checkpoint": {"path": os.path.relpath(path, ROOT), "bytes": ckpt_bytes,
+                       "state_dict_tensors_bit_equal": n_tensors, "of_them_bn_statistics": n_stats,
+                       "adam_entries_bit_equal": moments},
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "launches_per_train_step": per_step, "launches_per_validation_batch": per_batch}
+
+
+def engine_magnitude():
+    """(b): the magnitude curriculum's config at its YAML width, two epochs."""
+    path = os.path.join(ROOT, MAGNITUDE_YAML)
+    cfg = load_config(path)
+    slicewarp.reset_launches()
+    res = run_convergence(path, epochs=2, num_frames=16, device="cuda", eval_every=1)
+    got = dict(slicewarp.LAUNCHES)
+    report(res)
+    steps = 2 * 16 // cfg.TRAIN.BATCH_SIZE
+    assert res["steps"] == steps, res["steps"]
+    for k, v in res["series"].items():
+        assert len(v) == steps and all(math.isfinite(x) for x in v), k
+    assert [m["epoch"] for m in res["eval_curve"]] == [1, 2]
+    # evaluations: before, after each epoch, after the run; 64 test frames
+    batches = 4 * -(-64 // cfg.TEST.BATCH_SIZE)
+    per_step = ssv_step_launches(cfg)
+    per_batch = sampler_counts(cfg.DATASET.CAMERA_NUM, 1, 0)
+    expect = {k: per_step[k] * steps + per_batch[k] * batches for k in SAMPLERS}
+    assert got == expect, (got, expect)
+    return got, {
+        "config": MAGNITUDE_YAML, "epochs": 2, "frames": 16, "steps": res["steps"],
+        "seconds": res["seconds"], "train_seconds": res["train_seconds"],
+        "steps_per_s": res["steps"] / res["train_seconds"],
+        "data_share": res["data_seconds"] / res["train_seconds"],
+        "eval_init": res["eval_init"], "eval_curve": res["eval_curve"],
+        "eval_final": res["eval_final"], "launches_per_train_step": per_step,
+        "launches_per_validation_batch": per_batch, "validation_batches": batches,
+        "launches_whole_run": got}
+
+
+def json_finite(x):
+    """``x`` with every non-finite float as None (an empty match gives an
+    infinite MPJPE), so that the phase's line is strict JSON."""
+    if isinstance(x, dict):
+        return {k: json_finite(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [json_finite(v) for v in x]
+    return None if isinstance(x, float) and not math.isfinite(x) else x
+
+
+def phase_engine():
+    """Phase 9; returns the engine's paths' launch counts."""
+    step_f, batch_f, flagship = engine_flagship()
+    torch.cuda.empty_cache()
+    whole, magnitude = engine_magnitude()
+    emit(json_finite({"phase": "engine", "flagship": flagship, "magnitude": magnitude}))
+    return {"engine train step (cam5_posenet.yaml)": step_f,
+            "engine validation batch (cam5_posenet.yaml)": batch_f,
+            "engine magnitude run, 2 epochs (magnitude_ssv.yaml)": whole}
+
+
 def identity_bar(hm, px, py, cot):
     """The bar of the inner-product identity <sample_view(h), g> == <h,
     adjoint(g)> (tests/test_torch_cuda.py ``_identity_bar``): 1e-5 of the
@@ -903,6 +1095,169 @@ def phase_kernels_supervised(rows, sup, path_launches):
     for row in rows[:3]:
         row["launches_per_path"] = {path: counts[row["name"]]
                                     for path, counts in path_launches.items()}
+
+
+def views_row(hm, views, reps):
+    """sample_view of ``hm`` (B, H, W, J) at every view's points (the
+    (px, py, grid, inside) tuples of whole_space_points), one launch a
+    view as the path makes them: the largest error against the plain
+    version over the views (bar 1e-5), the launches' time beside the plain
+    versions', F.grid_sample's on the same grids and their bound (bytes,
+    priced as the rows above, times the views)."""
+    B, H, W, J = hm.shape
+    N = views[0][0].shape[1]
+    err = max(float((slicewarp.sample_view(hm, px, py)
+                     - slicewarp.sample_view_plain(hm, px, py)).abs().max())
+              for px, py, _, _ in views)
+    assert err <= 1e-5, ("sample_view", list(hm.shape), err)
+    hm_nchw = hm.permute(0, 3, 1, 2).contiguous()
+    lib_err = max(float((torch.nn.functional.grid_sample(hm_nchw, grid, align_corners=True)
+                         [:, :, 0].permute(0, 2, 1) - slicewarp.sample_view(hm, px, py))
+                        .abs().max()) for px, py, grid, _ in views)
+    n = len(views)
+    bms, by = bound(n * 4 * (B * H * W * J + 2 * B * N + B * N * J), n * B * N * (8 * J + 12))
+    return {
+        "shapes": {"hm": [B, H, W, J], "points": [B, N], "launches": n},
+        "inside_share_per_view": [float(v[3].float().mean()) for v in views],
+        "max_abs_err": err, "bound_ms": bms, "bound_by": by,
+        "ms": cuda_ms(lambda: [slicewarp.sample_view(hm, px, py) for px, py, _, _ in views],
+                      reps),
+        "plain_ms": cuda_ms(lambda: [slicewarp.sample_view_plain(hm, px, py)
+                                     for px, py, _, _ in views], 3),
+        "library_ms": cuda_ms(lambda: [torch.nn.functional.grid_sample(
+            hm_nchw, grid, align_corners=True) for _, _, grid, _ in views], reps),
+        "library": "F.grid_sample(align_corners=True, padding_mode='zeros'), one call a view",
+        "library_max_abs_err": lib_err}
+
+
+def phase_kernels_magnitude(rows):
+    """The three samplers at the magnitude run's shapes (magnitude_ssv.yaml
+    as it loads: V = 3 views of 64x32 heatmaps, train and test batch 4,
+    float32; the model at random weights from seed 0 on the datasets'
+    first frames, THRESHOLD -100 keeping all K = 5 candidates, as the step
+    runs them without bucket dispatch), each on seeded uniform heatmaps:
+    sample_view with J = 1 over RootNet's whole 32x32x16 space for the
+    train step's 3-branch fold (3B = 12); sample_view with J = 15 and its
+    adjoint over PoseNet's 16^3 cubes for the 2-branch fold (2B = 8), the
+    adjoint on a step-like cotangent (the rows of the points outside each
+    view's image zeroed; 2e-5 of its largest entry against the plain
+    version and 1e-5 against the float64 one, and the identity bar);
+    sample_views_mean on a validation batch's cubes (B = 4, float32 out,
+    1e-5). Every view's launch, as the path makes them, timed beside the
+    plain versions, the bound (bytes) and a library call. Adds them to
+    ``rows`` (sample_view, sample_views_mean, sample_view_adjoint)."""
+    cfg = load_config(os.path.join(ROOT, MAGNITUDE_YAML))
+    W, H = cfg.NETWORK.HEATMAP_SIZE
+    J, V = cfg.NETWORK.NUM_JOINTS, cfg.DATASET.CAMERA_NUM
+    dev = torch.device("cuda")
+    model = get_model(cfg, device=dev, seed=0)
+    train_ds = get_dataset(cfg, cfg.DATASET.TRAIN_DATASET, cfg.DATASET.TRAIN_SUBSET, True)
+    test_ds = get_dataset(cfg, cfg.DATASET.TEST_DATASET, cfg.DATASET.TEST_SUBSET, False)
+    frames = [train_ds.get_ssv_frame(i) for i in range(cfg.TRAIN.BATCH_SIZE)]
+    b1, b2, b3 = (collate_branch([f[k] for f in frames]).to(dev) for k in range(3))
+    test_br = collate_branch([test_ds.get_frame(i)["views"]
+                              for i in range(cfg.TEST.BATCH_SIZE)]).to(dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    # RootNet: the root channel over the whole space, 3-branch fold
+    fold = cat_branches(b1, b2, b3)
+    views = [whole_space_points(model.root_net, fold, (W, H), v) for v in range(V)]
+    hm1 = torch.rand(fold.batch_size, H, W, 1, generator=g, device=dev)
+    rows[0]["magnitude_rootnet_j1"] = views_row(hm1, views, 100)
+    del views, hm1
+
+    # PoseNet: every candidate's cube, 2-branch fold, forward and adjoint
+    pn = model.pose_net
+    with torch.no_grad():
+        gc = model.do_inference(b3)[2]
+    assert bool((gc[..., 3] >= 0).all()) and gc.shape[1] == cfg.MULTI_PERSON.MAX_PEOPLE_NUM
+    fold = cat_branches(b1, b2)
+    B2 = fold.batch_size
+    grids = compute_grid(pn.grid_size, torch.cat([gc, gc])[..., :3], pn.cube_size)
+    sg, inside = compute_sample_grid(grids.reshape(B2, 1, -1, 3), fold.cam, fold.trans,
+                                     pn.image_wh, (W, H), fold.orig_wh)
+    pxs, pys = to_pixels(sg, (W, H))
+    views = [(pxs[:, v].contiguous(), pys[:, v].contiguous(), sg[:, v, None].contiguous(),
+              inside[:, v].contiguous()) for v in range(V)]
+    del sg, grids, pxs, pys
+    N = views[0][0].shape[1]
+    hm2 = torch.rand(B2, H, W, J, generator=g, device=dev)
+    rows[0]["magnitude_posenet_j15"] = views_row(hm2, views, 50)
+
+    cot = torch.rand(B2, N, J, generator=g, device=dev)
+    steps = [(px, py, (cot * ins[..., None]).contiguous()) for px, py, _, ins in views]
+    err = err64 = peak = bar = ident = 0.0
+    for px, py, c in steps:
+        got = slicewarp.sample_view_adjoint(c, px, py, (H, W))
+        plain = slicewarp.sample_view_adjoint_plain(c, px, py, (H, W))
+        plain64 = slicewarp.sample_view_adjoint_plain(c.double(), px, py, (H, W))
+        p = float(plain64.abs().max())
+        e, e64 = float((got - plain).abs().max()), float((got.double() - plain64).abs().max())
+        assert e <= 2e-5 * float(plain.abs().max()) and e64 <= 1e-5 * p, ("adjoint", e, e64, p)
+        lhs = float((slicewarp.sample_view(hm2, px, py).double() * c.double()).sum())
+        rhs = float((hm2.double() * got.double()).sum())
+        b = identity_bar(hm2, px, py, c)
+        assert abs(lhs - rhs) <= b, ("adjoint identity", lhs, rhs, b)
+        err, err64, peak = max(err, e), max(err64, e64), max(peak, p)
+        ident, bar = max(ident, abs(lhs - rhs)), max(bar, b)
+    del got, plain, plain64
+    hm_req = hm2.permute(0, 3, 1, 2).contiguous().requires_grad_()
+    lib_outs = [torch.nn.functional.grid_sample(hm_req, grid, align_corners=True)
+                for _, _, grid, _ in views]
+    lib_cots = [c.permute(0, 2, 1)[:, :, None].contiguous() for _, _, c in steps]
+    lib_err = max(float((torch.autograd.grad(o, hm_req, c, retain_graph=True)[0]
+                         .permute(0, 2, 3, 1)
+                         - slicewarp.sample_view_adjoint(s[2], s[0], s[1], (H, W))).abs().max())
+                  for o, c, s in zip(lib_outs, lib_cots, steps))
+    # every row of g is read (to find the zeros), the coordinates and the
+    # operations only of the points inside each image
+    live = int(inside.sum())
+    bms, by = bound(4 * (V * B2 * N * J + 2 * live + V * B2 * H * W * J), live * (8 * J + 12))
+    rows[2]["magnitude_posenet_step_like"] = {
+        "shapes": {"g": [B2, N, J], "hm": [B2, H, W, J], "launches": V},
+        "rows_nonzero_share": live / (V * B2 * N), "max_abs_err": err,
+        "max_abs_err_vs_float64_plain": err64, "max_abs_grad": peak,
+        "identity_abs_err": ident, "identity_bar": bar, "bound_ms": bms, "bound_by": by,
+        "ms": cuda_ms(lambda: [slicewarp.sample_view_adjoint(c, px, py, (H, W))
+                               for px, py, c in steps], 50),
+        "plain_ms": cuda_ms(lambda: [slicewarp.sample_view_adjoint_plain(c, px, py, (H, W))
+                                     for px, py, c in steps], 3),
+        "library_ms": cuda_ms(lambda: [torch.autograd.grad(o, hm_req, c, retain_graph=True)[0]
+                                       for o, c in zip(lib_outs, lib_cots)], 20),
+        "library": "torch.autograd.grad of F.grid_sample(align_corners=True) w.r.t. its "
+                   "input, one call a view",
+        "library_max_abs_err": lib_err}
+    del views, steps, cot, hm2, hm_req, lib_outs, lib_cots, inside
+
+    # sample_views_mean: a validation batch's cubes of every candidate
+    with torch.no_grad():
+        gc = model.do_inference(test_br)[2]
+    B, k = test_br.batch_size, pn.bucket(gc)
+    grids = compute_grid(pn.grid_size, gc[:, :k, :3], pn.cube_size).reshape(B, -1, 3)
+    sg, bnd = compute_sample_grid(grids[:, None], test_br.cam, test_br.trans, pn.image_wh,
+                                  (W, H), test_br.orig_wh)
+    px, py = to_pixels(sg, (W, H))
+    del sg, grids
+    N = px.shape[-1]
+    hm = torch.rand(B, V, H, W, J, generator=g, device=dev)
+    err = float((slicewarp.sample_views_mean(hm, px, py, bnd)
+                 - slicewarp.sample_views_mean_plain(hm, px, py, bnd)).abs().max())
+    assert err <= 1e-5, ("sample_views_mean, magnitude", err)
+    bms, by = bound(4 * (B * V * H * W * J + 3 * B * V * N + B * N * J),
+                    B * N * (V * (8 * J + 12) + 3 * J))
+    hm_views = hm.reshape(B * V, H, W, J).permute(0, 3, 1, 2)
+    grid_views = torch.stack([px / (W - 1) * 2 - 1, py / (H - 1) * 2 - 1], -1).reshape(
+        B * V, 1, N, 2)
+    rows[1]["magnitude_validation"] = {
+        "shapes": {"hm": [B, V, H, W, J], "points": [B, V, N], "candidates": k, "out": "f32"},
+        "max_abs_err": err, "bound_ms": bms, "bound_by": by,
+        "ms": cuda_ms(lambda: slicewarp.sample_views_mean(hm, px, py, bnd), 50),
+        "plain_ms": cuda_ms(lambda: slicewarp.sample_views_mean_plain(hm, px, py, bnd), 3),
+        "library_ms": None,
+        "library_sampling_only_ms": cuda_ms(lambda: torch.nn.functional.grid_sample(
+            hm_views, grid_views, align_corners=True), 50)}
+    del model, hm, hm_views, grid_views, px, py, bnd
+    torch.cuda.empty_cache()
 
 
 def phase_kernels(model, br, gc, launches, train_model, train_brs, train_launches):
@@ -1293,15 +1648,17 @@ def main() -> int:
     phase_train_parity()
     sup, paths = phase_supervised()
     stages = phase_stages()
+    engine = phase_engine()
     paths = {"do_inference": launches_main, "SSV train step": train_launches, **paths,
              "stage 1 step": stages["stage1"]["launches_per_step"],
-             "stage 2 step": stages["stage2"]["launches_per_step"]}
+             "stage 2 step": stages["stage2"]["launches_per_step"], **engine}
     rows = phase_kernels(model, br, gc, launches_main, train_model, train_brs, train_launches)
     del model, br, gc, train_model, train_brs
     torch.cuda.empty_cache()
     phase_kernels_supervised(rows, sup, paths)
     del sup
     torch.cuda.empty_cache()
+    phase_kernels_magnitude(rows)
     rows += phase_microbench()
     for row in rows:
         assert row["launches"] > 0, row["name"]

@@ -6,7 +6,8 @@ to find, and it imports nothing of JAX or of ``selfpose3d_tpu``:
 
   config.py   the same dataclass config schema (own copy)
   geometry/   camera projection, affine transforms, voxel grids
-  data/       AugBranch batch structure, synthetic Panoptic-like scenes
+  data/       AugBranch batch structure, synthetic Panoptic-like scenes,
+              the synthetic-scene dataset and its targets, the loader
   ops/        sampling (plain + hand-written CUDA kernels, forward and
               adjoint), unprojection, proposals and their GT matching,
               soft-argmax, Gaussian rendering, Hungarian matching
@@ -15,7 +16,11 @@ to find, and it imports nothing of JAX or of ``selfpose3d_tpu``:
               stage flags), MultiPersonPoseNet (the supervised baseline)
   train/      train state (Adam/SGD, frozen sub-networks), LR schedule,
               the SSV and supervised train steps, the inference step and
-              the SSV debug forward
+              the SSV debug forward; the train and validation loops,
+              checkpoints, the convergence harness
+  eval/       the Panoptic AP/MPJPE and Shelf/Campus PCP protocols
+  utils/      meters, logging
+  cli/        train_3d, validate_3d
   convert/    JAX parameter (or gradient) trees -> this package's state dicts
   microbench/ the measurement probes (3D conv, slice-warp variants,
               primitive rates), each with its CUDA kernel

@@ -44,9 +44,9 @@ class AugBranch:
     def num_views(self):
         return self.trans.shape[1]
 
-    def to(self, device) -> "AugBranch":
+    def to(self, device, non_blocking: bool = False) -> "AugBranch":
         moved = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
-            moved[f.name] = None if v is None else v.to(device)
+            moved[f.name] = None if v is None else v.to(device, non_blocking=non_blocking)
         return AugBranch(**moved)

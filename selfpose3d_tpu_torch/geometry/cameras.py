@@ -43,10 +43,11 @@ class CameraParams:
     def batch_shape(self):
         return tuple(self.R.shape[:-2])
 
-    def to(self, device) -> "CameraParams":
-        return CameraParams(
-            **{f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)}
-        )
+    def to(self, device, non_blocking: bool = False) -> "CameraParams":
+        return CameraParams(**{
+            f.name: getattr(self, f.name).to(device, non_blocking=non_blocking)
+            for f in dataclasses.fields(self)
+        })
 
 
 def _project_core(x, R, T, f, c, k, p):
@@ -99,3 +100,13 @@ def project_points_with_trans(
     """Project, then apply the image-space affine ``trans`` (..., 2or3, 3)
     (ref: lib/utils/cameras.py:58-108) -> (..., N, 2)."""
     return affine_points(project_points(x, cam), trans)
+
+
+def world_to_camera_frame(x: torch.Tensor, R: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+    """(..., N, 3) world -> camera (ref: lib/utils/cameras.py:121-134)."""
+    return torch.einsum("...ij,...nj->...ni", R, x - T.transpose(-1, -2))
+
+
+def camera_to_world_frame(x: torch.Tensor, R: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+    """(..., N, 3) camera -> world (ref: lib/utils/cameras.py:137-151)."""
+    return torch.einsum("...ji,...nj->...ni", R, x) + T.transpose(-1, -2)

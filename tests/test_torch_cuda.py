@@ -4,6 +4,8 @@ GPU). Imports nothing of JAX, so it also runs where JAX is not installed:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -651,3 +653,72 @@ def test_supervised_train_step_on_card_matches_cpu(cuda):
     for k in lc:
         assert abs(lg[k] - lc[k]) <= 1e-3 * abs(lc[k]), (k, lg[k], lc[k])
     assert mc == mg == ["backbone", "pose_net", "root_net"]
+
+
+TERMS = ("loss_2d", "loss_root_syn", "loss_pose3d_ssv", "loss_pose3d_l1_ssv", "loss_root_reg")
+
+
+def test_tiny_ssv_converges_on_card(cuda, tmp_path):
+    """The JAX package's proof that SSV training learns
+    (tests/test_convergence.py, its assertions), on the port's engine on the
+    card: five epochs of configs/synthetic/tiny_ssv.yaml from random init."""
+    from selfpose3d_tpu_torch.train.convergence import head_tail_means, run_convergence
+
+    res = run_convergence("configs/synthetic/tiny_ssv.yaml", epochs=5,
+                          out_path=str(tmp_path / "curves.json"), device="cuda")
+    assert res["steps"] >= 150
+    total_h, total_t = head_tail_means(res["series"]["train/loss"])
+    assert total_t < 0.8 * total_h, (total_h, total_t)
+    ratios = {}
+    for term in TERMS:
+        h, t = head_tail_means(res["series"][f"train/{term}"])
+        ratios[term] = t / h
+    dropped = [term for term, r in ratios.items() if r < 0.85]
+    r0 = res["eval_init"].get("recall500_root", 0.0)
+    r1 = res["eval_final"].get("recall500_root", 0.0)
+    m0 = res["eval_init"].get("mpjpe_root", float("inf"))
+    m1 = res["eval_final"].get("mpjpe_root", float("inf"))
+    print("tiny_ssv 5 epochs on the card:", json.dumps({
+        "steps": res["steps"], "seconds": res["seconds"], "total_head_tail": [total_h, total_t],
+        "ratios": ratios,
+        "dropped": dropped, "recall500_root": [r0, r1], "mpjpe_root": [m0, m1]}))
+    assert len(dropped) >= 3, dropped
+    assert (r1 > r0 + 0.04) or (m1 < 0.8 * m0), (r0, r1, m0, m1)
+
+
+def test_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """An SSV epoch on the card, saved and loaded into a fresh model and
+    train state on the card: parameters, BatchNorm statistics, Adam moments,
+    the schedule and the step bit-equal to the saved ones; the resumed state
+    trains on (the adjoint's float atomics make the card's steps not
+    bit-reproducible, so the step after resume is not compared)."""
+    from selfpose3d_tpu_torch.config import load_config
+    from selfpose3d_tpu_torch.data.synthetic_dataset import SyntheticSceneDataset
+    from selfpose3d_tpu_torch.models import get_model
+    from selfpose3d_tpu_torch.train import checkpoint as ckpt
+    from selfpose3d_tpu_torch.train import create_train_state
+    from selfpose3d_tpu_torch.train.loop import train_epoch_ssv
+
+    cfg = load_config("configs/synthetic/tiny_ssv.yaml", overrides={"DEBUG": {"DEBUG": False}})
+    ds = SyntheticSceneDataset(cfg, "train", num_frames=4)
+    model = get_model(cfg, device=cuda, seed=0)
+    state = create_train_state(cfg, model, 2)
+    train_epoch_ssv(cfg, model, state, ds, epoch=0)
+    ckpt.save_checkpoint(str(tmp_path), state, 1, 0.5, is_best=False)
+    fresh = get_model(cfg, device=cuda, seed=1)
+    resumed, epoch, _ = ckpt.load_checkpoint(str(tmp_path), create_train_state(cfg, fresh, 2))
+    assert epoch == 1 and resumed.step == state.step == 2
+    for k, v in model.state_dict().items():
+        got = fresh.state_dict()[k]
+        assert got.device == v.device and torch.equal(got, v), k
+    saved, loaded = state.optimizer.state_dict(), resumed.optimizer.state_dict()
+    assert saved["param_groups"] == loaded["param_groups"]
+    assert set(saved["state"]) == set(loaded["state"]) and saved["state"]
+    for i, s in saved["state"].items():
+        for name in ("exp_avg", "exp_avg_sq", "step"):
+            got = loaded["state"][i][name]
+            assert got.device == s[name].device and torch.equal(s[name], got), (i, name)
+    assert resumed.scheduler.state_dict() == state.scheduler.state_dict()
+    meters = {}
+    train_epoch_ssv(cfg, fresh, resumed, ds, epoch=1, meters_out=meters)
+    assert resumed.step == 4 and np.isfinite(meters["loss"].avg)
