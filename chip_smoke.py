@@ -62,7 +62,28 @@ Phases, each printing one JSON line:
               3 x 256x128, rendered images, batch 4), 2 epochs of 16
               frames, an evaluation after each: 8 steps, every loss series
               finite, the launches of the whole run as derived;
- 10. kernels  each kernel at its main path's shapes and sample points (with
+ 10. realdata the host side for real data, through
+              selfpose3d_tpu_torch/mini_panoptic.py: a mini CMU Panoptic
+              tree in the panoptic-toolbox layout under build/ (the 13 sequences of
+              the train and validation lists, one frame each of 2-3
+              people, calibration and hdPose3d_stage1_coco19 JSON, 5 HD
+              views rendered at 1920x1080 and stored as PNG at the .jpg
+              paths), the pseudo labels of stages s1-s8 with a fake
+              detector and pose model (projected GT plus seeded noise),
+              one epoch of cli/train_3d on cam5_posenet.yaml as it loads
+              through panoptic_ssv (9 frames: decode, warp, RandAugment
+              and Cutout of 15 images a frame), THRESHOLD -100, DEBUG.DEBUG
+              with PRINT_FREQ 1 (the 3D plots stay off: no matplotlib),
+              the stage files of the YAML replaced by one reference-layout
+              file of the seeded model, validation on panoptic (4 frames),
+              cli/evaluate --vis-attn on the epoch's checkpoint saved as a
+              reference .pth.tar, track_sequence over its dump: launches a
+              train step, a debug dump and a validation batch (as the loops
+              record them, with every count set to 0 before the train CLI)
+              and of evaluate held as derived, every debug PNG non-blank, the metrics
+              finite; steps/s, data-wait share, the host ms of one SSV
+              frame from disk and peak memory beside the card's line;
+ 11. kernels  each kernel at its main path's shapes and sample points (with
               seeded uniform heatmaps), held against its plain version,
               timed beside it, beside its bound, and beside one PyTorch
               library call where one computes the same function (for
@@ -81,7 +102,7 @@ Phases, each printing one JSON line:
               cubes for the 2-branch fold, each a launch a view;
               sample_views_mean on a validation batch's cubes), and
               every sampler's launches on each path;
- 11. microbench  the three measurement probes (selfpose3d_tpu_torch/
+ 12. microbench  the three measurement probes (selfpose3d_tpu_torch/
               microbench/: conv3, sw_variants, primitives) at their full
               shapes, each probe's measurement driven with its kernel's
               launch count set to 0 just before and read just after; then
@@ -128,6 +149,7 @@ from selfpose3d_tpu_torch.microbench import primitives as mb_prim  # noqa: E402
 from selfpose3d_tpu_torch.microbench import sw_variants as mb_sw  # noqa: E402
 from selfpose3d_tpu_torch.microbench.common import (  # noqa: E402
     card_line, cuda_ms, sm_clock_max_mhz)
+from selfpose3d_tpu_torch.mini_panoptic import image_inked, run_realdata  # noqa: E402
 from selfpose3d_tpu_torch.ops import build, slicewarp  # noqa: E402
 from selfpose3d_tpu_torch.ops.unproject import compute_sample_grid, to_pixels  # noqa: E402
 from selfpose3d_tpu_torch.train import checkpoint  # noqa: E402
@@ -967,6 +989,64 @@ def phase_engine():
             "engine magnitude run, 2 epochs (magnitude_ssv.yaml)": whole}
 
 
+# ------------------------------------------------------------------ realdata
+
+REALDATA_DIR = os.path.join(ROOT, "build", "chip_smoke_realdata")
+def phase_realdata():
+    """Phase realdata; returns its paths' launch counts."""
+    smi = card_line()
+    rep = run_realdata(REALDATA_DIR, os.path.join(ROOT, FLAGSHIP_YAML))
+    cfg = rep.pop("cfg")
+    rep["config"] = FLAGSHIP_YAML
+    rep["changed"]["DATA_DIR"] = os.path.relpath(rep["changed"]["DATA_DIR"], ROOT)
+    V = cfg.DATASET.CAMERA_NUM
+    steps = rep["train_frames"] // cfg.TRAIN.BATCH_SIZE
+    batches = -(-rep["dump_frames"] // cfg.TEST.BATCH_SIZE)
+    per_step = ssv_step_launches(cfg)
+    # the debug forward (no gradient, train=False): RootNet on branch 3 and
+    # PoseNet's cubes through the view mean, as inference
+    per_dump = sampler_counts(V, 1, 0)
+    per_batch = sampler_counts(V, 1, 0)
+    got = rep["launches"]
+    meters = rep["epoch"]
+    assert meters["steps"] == steps and rep["dumps"] == -(-steps // cfg.PRINT_FREQ), (
+        meters["steps"], rep["dumps"])
+    assert got["train"] == times(per_step, steps), (got["train"], per_step)
+    assert got["debug"] == times(per_dump, rep["dumps"]), (got["debug"], per_dump)
+    assert got["validate"] == times(per_batch, batches), (got["validate"], per_batch)
+    # --vis-attn: one do_inference over the first (up to 4) frames, then validation
+    assert got["evaluate"] == times(per_batch, batches + 1), (got["evaluate"], per_batch)
+    finite_meters(meters)
+    val = rep["validation"]
+    assert all(math.isfinite(a) for a in val["aps"] + [val["recall500"]]), val
+    assert rep["evaluate"]["precision"] is not None and math.isfinite(rep["evaluate"]["precision"])
+    assert rep["dump_frames"] == len(rep["tracks"]) > 0
+    stems = [f"train_0_{i}" for i in range(0, steps, cfg.PRINT_FREQ)]
+    want = [f"{s}_{k}.png" for s in stems for k in ("gt", "hm_pred", "views_pred")]
+    assert rep["debug_files"] == sorted(want), (rep["debug_files"], want)
+    blank = [f for f in want if not image_inked(os.path.join(rep["debug_dir"], f))]
+    assert not blank, blank
+    print("realdata: DEBUG.SAVE_3D_POSES and SAVE_3D_ROOTS stay off: the 3D plots need "
+          "matplotlib, which this machine may lack; the 2D dumps are PNG", flush=True)
+    for name, value in (("steps/s", meters["steps"] / meters["seconds"]),
+                        ("data-wait share", meters["data_time"].sum / meters["seconds"]),
+                        ("host ms to build one SSV frame from disk (15 images)",
+                         sorted(rep["ssv_frame_from_disk_ms"])[1]),
+                        ("debug dumps' share of the epoch (forward and PNG writing)",
+                         rep["debug_dump_seconds"] / meters["seconds"]),
+                        ("peak memory GiB", rep["peak_mem_gib"])):
+        print(f"realdata: {name} {value} ({smi})", flush=True)
+    rep["epoch"] = epoch_report(meters)
+    rep["launches_per_train_step"], rep["launches_per_debug_dump"] = per_step, per_dump
+    rep["launches_per_validation_batch"], rep["validation_batches"] = per_batch, batches
+    rep["card"] = smi
+    emit(json_finite({"phase": "realdata", **rep}))
+    shutil.rmtree(REALDATA_DIR)
+    return {"realdata train step (cam5_posenet.yaml, panoptic_ssv)": per_step,
+            "realdata debug dump (cam5_posenet.yaml, panoptic_ssv)": per_dump,
+            "realdata validation batch (cam5_posenet.yaml, panoptic)": per_batch}
+
+
 def identity_bar(hm, px, py, cot):
     """The bar of the inner-product identity <sample_view(h), g> == <h,
     adjoint(g)> (tests/test_torch_cuda.py ``_identity_bar``): 1e-5 of the
@@ -1649,6 +1729,8 @@ def main() -> int:
     sup, paths = phase_supervised()
     stages = phase_stages()
     engine = phase_engine()
+    engine.update(phase_realdata())
+    torch.cuda.empty_cache()
     paths = {"do_inference": launches_main, "SSV train step": train_launches, **paths,
              "stage 1 step": stages["stage1"]["launches_per_step"],
              "stage 2 step": stages["stage2"]["launches_per_step"], **engine}

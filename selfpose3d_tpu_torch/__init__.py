@@ -7,7 +7,8 @@ to find, and it imports nothing of JAX or of ``selfpose3d_tpu``:
   config.py   the same dataclass config schema (own copy)
   geometry/   camera projection, affine transforms, voxel grids
   data/       AugBranch batch structure, synthetic Panoptic-like scenes,
-              the synthetic-scene dataset and its targets, the loader
+              the Panoptic, Panoptic-SSV and Shelf/Campus datasets, the
+              synthetic-scene dataset, targets, RandAugment, the loader
   ops/        sampling (plain + hand-written CUDA kernels, forward and
               adjoint), unprojection, proposals and their GT matching,
               soft-argmax, Gaussian rendering, Hungarian matching
@@ -18,9 +19,11 @@ to find, and it imports nothing of JAX or of ``selfpose3d_tpu``:
               the SSV and supervised train steps, the inference step and
               the SSV debug forward; the train and validation loops,
               checkpoints, the convergence harness
-  eval/       the Panoptic AP/MPJPE and Shelf/Campus PCP protocols
-  utils/      meters, logging
-  cli/        train_3d, validate_3d
+  eval/       the Panoptic AP/MPJPE and Shelf/Campus PCP protocols, tracking
+  utils/      image decoding, PNG writing and the affine warp (no OpenCV),
+              zip URIs, flips, debug dumps, meters, logging
+  pseudo_labels/  the pseudo-label pipeline (s1-s8) with pluggable models
+  cli/        train_3d, evaluate (validate_3d), visualize
   convert/    JAX parameter (or gradient) trees -> this package's state dicts
   microbench/ the measurement probes (3D conv, slice-warp variants,
               primitive rates), each with its CUDA kernel

@@ -7,13 +7,17 @@ epoch unless NETWORK.TRAIN_ONLY_2D, and writes a checkpoint per epoch
 under ``OUTPUT_DIR/<dataset>/<model>/<cfg name>/checkpoints`` with the
 best epoch's number in ``best_epoch.txt``. TRAIN.RESUME continues from
 the latest checkpoint there. ``--set SECTION.KEY=VALUE`` overrides one
-config entry (a YAML value), e.g. ``--set TRAIN.END_EPOCH=30``.
+config entry (a YAML value), e.g. ``--set TRAIN.END_EPOCH=30``. With
+DEBUG.DEBUG the SSV epochs write their debug dumps (PNG; the 3D plots of
+DEBUG.SAVE_3D_POSES / SAVE_3D_ROOTS need matplotlib) under
+``<output dir>/debug``.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+from typing import Optional
 
 import yaml
 
@@ -76,7 +80,10 @@ def load_stages(cfg, model, logger) -> None:
         ckpt.load_torch_stage(model, cfg.NETWORK.INIT_ALL, "all")
 
 
-def main(argv=None) -> float:
+def main(argv=None, report: Optional[dict] = None) -> float:
+    """Trains and validates as the config says -> the best precision.
+    ``report``, where given, receives the last epoch's ``meters_out``
+    (``epoch``) and its validation's ``metrics_out`` (``validation``)."""
     p = argparse.ArgumentParser(description="Train the multi-view 3D pose network")
     add_common_args(p)
     args = p.parse_args(argv)
@@ -95,25 +102,24 @@ def main(argv=None) -> float:
     if cfg.TRAIN.RESUME:
         state, start_epoch, best_precision = ckpt.load_checkpoint(output_dir, state)
         logger.info("resumed at epoch %d (best %.4f)", start_epoch, best_precision)
-    debug_dir = output_dir
-    if cfg.DEBUG.DEBUG:
-        logger.warning("DEBUG.DEBUG image dumps are not ported (ROADMAP Queue A item 11); "
-                       "training without them")
-        debug_dir = ""
 
     writer = TBWriter(tb_dir)
     load_images = not args.no_images
     for epoch in range(start_epoch, cfg.TRAIN.END_EPOCH):
         logger.info("Epoch: %d", epoch)
+        meters, metrics = {}, {}
         if cfg.MODEL == "multi_person_posenet_ssv":
             train_epoch_ssv(cfg, model, state, train_ds, epoch, writer=writer,
-                            load_images=load_images, output_dir=debug_dir)
+                            load_images=load_images, output_dir=output_dir, meters_out=meters)
         else:
             train_epoch_supervised(cfg, model, state, train_ds, epoch, writer=writer,
-                                   load_images=load_images)
+                                   load_images=load_images, meters_out=meters)
         precision = None
         if not cfg.NETWORK.TRAIN_ONLY_2D:
-            precision = validate_3d(cfg, model, test_ds, output_dir, load_images=load_images)
+            precision = validate_3d(cfg, model, test_ds, output_dir, load_images=load_images,
+                                    metrics_out=metrics)
+        if report is not None:
+            report.update(epoch=meters, validation=metrics)
         is_best = precision is not None and precision > best_precision
         if is_best:
             best_precision = precision

@@ -61,6 +61,9 @@ def _blend(img: np.ndarray, x0: int, y0: int, cover: np.ndarray, color) -> None:
     win += cover[..., None] * (np.asarray(color, np.float32) - win)
 
 
+_STRIP = 16  # rows a strip of draw_capsule
+
+
 def _window(img, lo_x, hi_x, lo_y, hi_y):
     """The integer pixel window [lo, hi] clipped to the image, or None."""
     H, W = img.shape[:2]
@@ -85,10 +88,29 @@ def draw_disc(img: np.ndarray, cx: float, cy: float, radius: float, color) -> No
     _blend(img, x0, y0, np.clip(radius + 0.5 - d, 0.0, 1.0), color)
 
 
+def draw_ring(img: np.ndarray, cx: float, cy: float, radius: float, thickness: float,
+              color) -> None:
+    """An anti-aliased circle of ``radius`` px and line width ``thickness``
+    at pixel (cx, cy), blended in place: cover clip(thickness / 2 + 0.5 -
+    |d - radius|, 0, 1), computed only inside the circle's box."""
+    r = radius + thickness / 2.0
+    win = _window(img, cx - r - 1, cx + r + 1, cy - r - 1, cy + r + 1)
+    if win is None:
+        return
+    x0, x1, y0, y1 = win
+    xs = np.arange(x0, x1 + 1, dtype=np.float32) - cx
+    ys = np.arange(y0, y1 + 1, dtype=np.float32)[:, None] - cy
+    d = np.abs(np.sqrt(xs * xs + ys * ys) - radius)
+    _blend(img, x0, y0, np.clip(thickness / 2.0 + 0.5 - d, 0.0, 1.0), color)
+
+
 def draw_capsule(img: np.ndarray, a, b, thickness: float, color) -> None:
     """An anti-aliased segment a -> b, ``thickness`` px wide with round
     caps, blended in place: cover clip(thickness / 2 + 0.5 - d, 0, 1) for
-    a pixel centre's distance d to the segment, inside the capsule's box."""
+    a pixel centre's distance d to the segment, inside the capsule's box.
+    The box is covered in strips of _STRIP rows, each over the columns
+    that the segment's points within reach of its rows can ink: a long
+    slanted limb inks a thin band of its box."""
     (ax, ay), (bx, by) = a, b
     r = thickness / 2.0
     win = _window(img, min(ax, bx) - r - 1, max(ax, bx) + r + 1,
@@ -96,13 +118,31 @@ def draw_capsule(img: np.ndarray, a, b, thickness: float, color) -> None:
     if win is None:
         return
     x0, x1, y0, y1 = win
-    px = np.arange(x0, x1 + 1, dtype=np.float32) - ax
-    py = np.arange(y0, y1 + 1, dtype=np.float32)[:, None] - ay
     dx, dy = float(bx - ax), float(by - ay)
     len2 = dx * dx + dy * dy
-    t = np.clip((px * dx + py * dy) / len2, 0.0, 1.0) if len2 > 0 else np.zeros_like(px + py)
-    d = np.sqrt((px - t * dx) ** 2 + (py - t * dy) ** 2)
-    _blend(img, x0, y0, np.clip(r + 0.5 - d, 0.0, 1.0), color)
+    reach = r + 1.0  # past the last inked pixel (cover 0 from r + 0.5)
+    for s0 in range(y0, y1 + 1, _STRIP):
+        s1 = min(s0 + _STRIP - 1, y1)
+        # the segment's parameters t whose point lies within reach of the rows
+        if dy != 0:
+            t0, t1 = sorted(((s0 - reach - ay) / dy, (s1 + reach - ay) / dy))
+            t0, t1 = max(t0, 0.0), min(t1, 1.0)
+            if t0 > t1:
+                continue
+        elif s0 - reach <= ay <= s1 + reach:
+            t0, t1 = 0.0, 1.0
+        else:
+            continue
+        xa, xb = sorted((ax + t0 * dx, ax + t1 * dx))
+        c0, c1 = max(x0, int(np.floor(xa - reach))), min(x1, int(np.ceil(xb + reach)))
+        if c0 > c1:
+            continue
+        px = np.arange(c0, c1 + 1, dtype=np.float32) - ax
+        py = np.arange(s0, s1 + 1, dtype=np.float32)[:, None] - ay
+        t = (np.clip((px * dx + py * dy) / len2, 0.0, 1.0) if len2 > 0
+             else np.zeros_like(px + py))
+        d = np.sqrt((px - t * dx) ** 2 + (py - t * dy) ** 2)
+        _blend(img, c0, s0, np.clip(r + 0.5 - d, 0.0, 1.0), color)
 
 
 def render_stick_figures(joints, joints_vis, img_wh, rs, num_joints: int) -> np.ndarray:

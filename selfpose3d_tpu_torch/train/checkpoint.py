@@ -234,3 +234,14 @@ def load_torch_stage(model: nn.Module, torch_path: str, component: str,
             f"wrong key layout (first keys: {sorted(sd)[:5]})"
         )
     return model
+
+
+def save_reference_checkpoint(model: nn.Module, path: str) -> str:
+    """``model``'s weights in the reference's released layout, which
+    ``load_torch_stage`` reads: ``{"state_dict": {"module.<key>": tensor}}``
+    on the CPU (a DataParallel model's state dict, ref: tools/train_3d.py
+    save_checkpoint)."""
+    sd = {f"module.{k}": v.detach().cpu() for k, v in model.state_dict().items()}
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    torch.save({"state_dict": sd}, path)
+    return path

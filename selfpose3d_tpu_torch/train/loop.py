@@ -21,15 +21,24 @@ import torch
 
 from selfpose3d_tpu_torch.config import Config
 from selfpose3d_tpu_torch.data.loader import PrefetchLoader, collate_branch
+from selfpose3d_tpu_torch.ops import slicewarp
 from selfpose3d_tpu_torch.train.step import (
     make_inference_step,
+    make_ssv_debug_forward,
     make_ssv_train_step,
     make_supervised_train_step,
 )
 from selfpose3d_tpu_torch.train.train_state import TrainState
 from selfpose3d_tpu_torch.utils.meters import AverageMeter
+from selfpose3d_tpu_torch.utils.vis import save_debug_images
 
 logger = logging.getLogger(__name__)
+
+
+def _launches_since(before: Dict[str, int]) -> Dict[str, int]:
+    """The sampler kernels' launches since ``before``, a copy of
+    ``slicewarp.LAUNCHES`` (zero on the CPU, where no kernel launches)."""
+    return {k: slicewarp.LAUNCHES[k] - n for k, n in before.items()}
 
 
 def _device(model) -> torch.device:
@@ -92,19 +101,22 @@ class _Profile:
 
 def _run_epoch(cfg: Config, state: TrainState, loader: PrefetchLoader, epoch: int,
                run_step: Callable, writer, meters_out: Optional[dict]) -> TrainState:
-    """The epoch loop shared by both trainers: ``run_step(batch)`` moves a
-    host batch to the device and takes one step -> metrics. Meters and
-    logging every PRINT_FREQ steps (a synchronising read of the metrics)."""
+    """The epoch loop shared by both trainers: ``run_step(i, batch)`` moves
+    the i-th host batch to the device and takes one step -> metrics. Meters and
+    logging every PRINT_FREQ steps (a synchronising read of the metrics).
+    ``meters_out`` receives the meters, the steps, the wall seconds and the
+    sampler kernels' launches of the epoch."""
     dev = _device(state.model)
     meters: Dict[str, AverageMeter] = {}
     batch_time, data_time = AverageMeter(), AverageMeter()
     prof = _Profile(epoch, dev)
+    launched = dict(slicewarp.LAUNCHES)
     t0 = end = time.time()
     steps = 0
     for i, batch in enumerate(loader):
         data_time.update(time.time() - end)
         prof.at(i)
-        metrics = run_step(batch)
+        metrics = run_step(i, batch)
         steps += 1
         if i % cfg.PRINT_FREQ == 0:
             names = list(metrics)
@@ -130,7 +142,7 @@ def _run_epoch(cfg: Config, state: TrainState, loader: PrefetchLoader, epoch: in
     if meters_out is not None:
         meters_out.update(
             steps=steps, seconds=time.time() - t0, data_time=data_time, batch_time=batch_time,
-            **meters,
+            launches=_launches_since(launched), **meters,
         )
     return state
 
@@ -149,14 +161,15 @@ def train_epoch_ssv(
     """One SSV training epoch (ref: function.py:27-217), in place on
     ``state``. The synthetic-root draws come from a CPU ``torch.Generator``
     seeded with ``epoch``. ``meters_out`` receives
-    the epoch's meters (data_time, batch_time, each metric), its steps and
-    wall seconds. The debug dumps of ``cfg.DEBUG.DEBUG`` (with an
-    ``output_dir``) are not ported: they raise."""
-    if cfg.DEBUG.DEBUG and output_dir:
-        raise NotImplementedError(
-            "DEBUG.DEBUG image dumps need utils/vis, not yet ported to "
-            "selfpose3d_tpu_torch (ROADMAP Queue A item 11); set DEBUG.DEBUG false"
-        )
+    the epoch's meters (data_time, batch_time, each metric), its steps, wall
+    seconds and sampler launches. With ``cfg.DEBUG.DEBUG`` and an
+    ``output_dir``, every PRINT_FREQ-th step re-runs the prediction-bearing
+    forward on its batch (``make_ssv_debug_forward``) and writes
+    ``utils/vis.save_debug_images`` under ``output_dir/debug/train_{epoch}_{i}``
+    (ref: function.py:176-217); ``meters_out`` then also receives the dumps'
+    count, host seconds (the forward and the writing, which reads the
+    forward's results back) and sampler launches, which are among the
+    epoch's (``debug_dumps``, ``debug_seconds``, ``debug_launches``)."""
     dev = _device(model)
     posenet_stage = epoch >= cfg.NETWORK.INIT_TRAIN_EPOCHS_ROOTNET
     l1_stage = epoch >= cfg.TRAIN.L1_EPOCH
@@ -170,19 +183,37 @@ def train_epoch_ssv(
         frames = [dataset.get_ssv_frame(i, seed=epoch, load_images=load_images) for i in idxs]
         return tuple(collate_branch([f[k] for f in frames], pin_memory=pin) for k in range(3))
 
-    def run_step(batch):
+    debug_fwd = (make_ssv_debug_forward(model, posenet_stage, l1_stage)
+                 if cfg.DEBUG.DEBUG and output_dir else None)
+    debug = {"debug_dumps": 0, "debug_seconds": 0.0,
+             "debug_launches": dict.fromkeys(slicewarp.LAUNCHES, 0)}
+
+    def run_step(i, batch):
         k_cap = pick_k_cap(buckets, batch[2].num_person, K_max)
         if k_cap not in steps:
             steps[k_cap] = make_ssv_train_step(
                 model, train_posenet_stage=posenet_stage, use_l1_stage=l1_stage, k_cap=k_cap)
         b1, b2, b3 = (b.to(dev, non_blocking=True) for b in batch)
-        return steps[k_cap](state, b1, b2, b3, generator=generator)
+        metrics = steps[k_cap](state, b1, b2, b3, generator=generator)
+        if debug_fwd is not None and i % cfg.PRINT_FREQ == 0:
+            t0, launched = time.time(), dict(slicewarp.LAUNCHES)
+            pred2, hm3, gc = debug_fwd(b1, b2, b3)
+            save_debug_images(cfg, b3, hm3, pred2, gc,
+                              os.path.join(output_dir, "debug", f"train_{epoch}_{i}"))
+            debug["debug_dumps"] += 1
+            debug["debug_seconds"] += time.time() - t0
+            for k, n in _launches_since(launched).items():
+                debug["debug_launches"][k] += n
+        return metrics
 
     loader = PrefetchLoader(
         len(dataset), cfg.TRAIN.BATCH_SIZE, make_batch,
         shuffle=cfg.TRAIN.SHUFFLE, num_workers=cfg.WORKERS, seed=epoch, drop_last=True,
     )
-    return _run_epoch(cfg, state, loader, epoch, run_step, writer, meters_out)
+    state = _run_epoch(cfg, state, loader, epoch, run_step, writer, meters_out)
+    if meters_out is not None and debug_fwd is not None:
+        meters_out.update(debug)
+    return state
 
 
 def train_epoch_supervised(
@@ -205,7 +236,7 @@ def train_epoch_supervised(
         frames = [dataset.get_frame(i, load_images=load_images, seed=epoch) for i in idxs]
         return collate_branch([f["views"] for f in frames], pin_memory=pin)
 
-    def run_step(branch):
+    def run_step(i, branch):
         return step_fn(state, branch.to(dev, non_blocking=True))
 
     loader = PrefetchLoader(
@@ -227,7 +258,8 @@ def validate_3d(
     process. The model runs in eval mode without autograd, and every
     module's mode is restored afterwards; the last batch is padded to the
     full TEST.BATCH_SIZE and trimmed; predictions are sorted by frame
-    index. ``metrics_out`` receives the whole report.
+    index. ``metrics_out`` receives the whole report and the sampler
+    kernels' launches of the pass (``launches``).
 
     Returns the model-selection metric: the mean AP over the thresholds
     (the PCP under the Shelf/Campus protocol), or None.
@@ -250,6 +282,7 @@ def validate_3d(
     loader = PrefetchLoader(len(dataset), batch, make_batch, shuffle=False,
                             num_workers=cfg.WORKERS)
     modes = {m: m.training for m in model.modules()}
+    launched = dict(slicewarp.LAUNCHES)
     idx_list, pred_list, root_list = [], [], []
     try:
         model.eval()
@@ -269,7 +302,7 @@ def validate_3d(
     roots = np.concatenate(root_list) if root_list else np.zeros((0,))
     metrics = dataset.evaluate([preds[i] for i in order], [roots[i] for i in order], output_dir)
     if metrics_out is not None:
-        metrics_out.update(metrics)
+        metrics_out.update(metrics, launches=_launches_since(launched))
     if metrics.get("aps") is None:
         if "avg_pcp" in metrics:  # Shelf/Campus PCP protocol (ref: :477-487)
             logger.info(

@@ -722,3 +722,44 @@ def test_checkpoint_round_trip_on_card(cuda, tmp_path):
     meters = {}
     train_epoch_ssv(cfg, fresh, resumed, ds, epoch=1, meters_out=meters)
     assert resumed.step == 4 and np.isfinite(meters["loss"].avg)
+
+
+def test_realdata_epoch_and_validation_on_card(cuda, tmp_path, monkeypatch):
+    """Phase realdata's path at a small width on the card: a panoptic_ssv
+    epoch of cli.train_3d on cam5_posenet.yaml with the debug dumps, the
+    panoptic validation and cli.evaluate --vis-attn over a mini Panoptic
+    tree (3 train and 1 validation sequences, 960x540 views), with every
+    sampler's launches a step, a debug dump and a validation batch as
+    derived from the flags."""
+    import chip_smoke
+    from selfpose3d_tpu_torch import mini_panoptic
+    from selfpose3d_tpu_torch.cli import train_3d
+    from selfpose3d_tpu_torch.data import skeleton
+
+    class Writer:
+        def add_scalar(self, *a):
+            pass
+
+        def close(self):
+            pass
+
+    monkeypatch.setattr(train_3d, "TBWriter", lambda log_dir: Writer())
+    monkeypatch.setattr(skeleton, "PANOPTIC_TRAIN_LIST", skeleton.PANOPTIC_TRAIN_LIST[:3])
+    monkeypatch.setattr(skeleton, "PANOPTIC_VAL_LIST", skeleton.PANOPTIC_VAL_LIST[:1])
+    small = {"NETWORK.IMAGE_SIZE": [192, 128], "NETWORK.HEATMAP_SIZE": [48, 32],
+             "POSE_RESNET.NUM_LAYERS": 18, "ATTN_NUM_LAYERS": 18, "DTYPE": "float32",
+             "MULTI_PERSON.INITIAL_CUBE_SIZE": [16, 16, 8], "PICT_STRUCT.CUBE_SIZE": [8, 8, 8],
+             "WORKERS": 2}
+    yaml_path = f"{chip_smoke.ROOT}/{chip_smoke.FLAGSHIP_YAML}"
+    rep = mini_panoptic.run_realdata(str(tmp_path / "rd"), yaml_path, "cuda", small,
+                                     image_wh=(960, 540))
+    cfg = rep["cfg"]
+    V, steps = cfg.DATASET.CAMERA_NUM, rep["epoch"]["steps"]
+    assert steps == 3 and rep["dumps"] == 3
+    got = rep["launches"]
+    assert got["train"] == chip_smoke.times(chip_smoke.ssv_step_launches(cfg), steps), got
+    assert got["debug"] == chip_smoke.times(chip_smoke.sampler_counts(V, 1, 0), 3), got
+    assert got["validate"] == chip_smoke.sampler_counts(V, 1, 0), got
+    assert got["evaluate"] == chip_smoke.sampler_counts(2 * V, 2, 0), got
+    assert all(np.isfinite(m.avg) for k, m in rep["epoch"].items() if k.startswith("loss"))
+    assert rep["dump_frames"] == 1 and len(rep["debug_files"]) == 9

@@ -12,6 +12,7 @@ A resumed run equals the uninterrupted one bit for bit.
 """
 
 import logging
+import os
 import types
 
 import jax
@@ -28,6 +29,7 @@ from selfpose3d_tpu.data.synthetic import make_synthetic_branch as j_make_branch
 from selfpose3d_tpu.data.synthetic_dataset import SyntheticSceneDataset as JDataset
 from selfpose3d_tpu.models import get_model as j_get_model
 
+from selfpose3d_tpu_torch.cli import evaluate as evaluate_cli
 from selfpose3d_tpu_torch.cli import train_3d, validate_3d as validate_cli
 from selfpose3d_tpu_torch.config import load_config
 from selfpose3d_tpu_torch.convert.from_jax import from_jax
@@ -117,13 +119,16 @@ def test_train_epoch_supervised_steps():
     assert precision == float(np.mean(metrics["aps"])) and "recall500_root" in metrics
 
 
-def test_debug_dumps_raise():
+def test_debug_dumps_raise(tmp_path):
+    """DEBUG.DEBUG with an output dir once raised (the dumps were not
+    ported); now every PRINT_FREQ-th step writes them."""
     cfg = load_config(TINY)
-    assert cfg.DEBUG.DEBUG
+    assert cfg.DEBUG.DEBUG and not cfg.DEBUG.SAVE_3D_POSES
     model = get_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        train_epoch_ssv(cfg, model, create_train_state(cfg, model), _dataset(cfg, "train", 2),
-                        epoch=0, output_dir="out")
+    train_epoch_ssv(cfg, model, create_train_state(cfg, model), _dataset(cfg, "train", 2),
+                    epoch=0, output_dir=str(tmp_path))
+    dumps = sorted(os.listdir(tmp_path / "debug"))
+    assert dumps == [f"train_0_0_{k}.png" for k in ("gt", "hm_pred", "views_pred")]
 
 
 # ------------------------------------------------------ checkpoint, resume
@@ -344,7 +349,7 @@ def test_train_and_validate_cli(tmp_path, monkeypatch):
 
     datasets = train_3d.datasets
     monkeypatch.setattr(train_3d, "datasets", two_frames)
-    monkeypatch.setattr(validate_cli, "datasets", two_frames)
+    monkeypatch.setattr(evaluate_cli, "eval_dataset", lambda cfg: two_frames(cfg)[1])
     root = logging.getLogger()
     handlers, level = list(root.handlers), root.level
     try:
@@ -364,7 +369,7 @@ def _train_and_validate(tmp_path):
     path = tmp_path / "tiny_cli.yaml"
     path.write_text(yaml.safe_dump(raw))
     common = ["--cfg", str(path), "--device", "cpu"]
-    best = train_3d.main(common)  # DEBUG.DEBUG is on in the YAML: trains without dumps
+    best = train_3d.main(common)  # DEBUG.DEBUG is on in the YAML: writes the dumps
     out = tmp_path / "out" / "synthetic" / "multi_person_posenet_ssv_18" / "tiny_cli"
     assert ckpt.latest_checkpoint_epoch(str(out)) == 1
     train_3d.main(common + ["--set", "TRAIN.RESUME=true", "--set", "TRAIN.END_EPOCH=2"])
