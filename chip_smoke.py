@@ -83,7 +83,32 @@ Phases, each printing one JSON line:
               and of evaluate held as derived, every debug PNG non-blank, the metrics
               finite; steps/s, data-wait share, the host ms of one SSV
               frame from disk and peak memory beside the card's line;
- 11. kernels  each kernel at its main path's shapes and sample points (with
+ 11. ddp      data parallelism (parallel/mesh.py): (a) cam5_posenet.yaml as
+              phase engine loads it (THRESHOLD -100, batch 1, bf16), over
+              nccl at world size 1 (the group formed by init_distributed
+              from torchrun's variables): two steps each of a plain path,
+              a second plain path and a DDP path, the first step's loss
+              terms within 1e-2 rel (bf16), the first step's gradients
+              and Adam update (relative L2 per net) within three times
+              the two plain paths' spread and at least 1e-2, the second
+              step's terms reported beside that spread; then 20 timed
+              steps a path, plain and DDP alternating (median, least,
+              most: the wrapper's cost), each step's peak memory above
+              what stays resident, each step's sampler launches as
+              derived; (a') cli.train_3d --distributed as
+              torch.distributed.run starts a process at world size 1 on
+              the same YAML with random weights, an epoch of 4 synthetic
+              frames, its validation and checkpoint (which a fresh train
+              state loads), its launches read from the CLI's report; (b) two gloo ranks spawned on the one
+              card (nccl takes one rank a GPU) at one example each of
+              small_train_cfg (float32, L1 and PoseNet stages) against one
+              process at two, with batch statistics and with BatchNorm on
+              its running statistics: loss terms, gradients, running
+              statistics and parameters after Adam within
+              parallel/check.py:BARS, both ranks bit-equal, each rank's
+              launches as derived. Its numbers are a correctness check and
+              the wrapper's cost, not scaling: there is one card;
+ 12. kernels  each kernel at its main path's shapes and sample points (with
               seeded uniform heatmaps), held against its plain version,
               timed beside it, beside its bound, and beside one PyTorch
               library call where one computes the same function (for
@@ -102,7 +127,7 @@ Phases, each printing one JSON line:
               cubes for the 2-branch fold, each a launch a view;
               sample_views_mean on a validation batch's cubes), and
               every sampler's launches on each path;
- 12. microbench  the three measurement probes (selfpose3d_tpu_torch/
+ 13. microbench  the three measurement probes (selfpose3d_tpu_torch/
               microbench/: conv3, sw_variants, primitives) at their full
               shapes, each probe's measurement driven with its kernel's
               launch count set to 0 just before and read just after; then
@@ -121,7 +146,9 @@ exits non-zero without one.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -130,17 +157,19 @@ import shutil
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-from selfpose3d_tpu_torch.config import flagship_cfg, load_config  # noqa: E402
+from selfpose3d_tpu_torch.config import flagship_cfg, get_model_name, load_config  # noqa: E402
 from selfpose3d_tpu_torch.data.loader import collate_branch  # noqa: E402
 from selfpose3d_tpu_torch.data.registry import get_dataset  # noqa: E402
 from selfpose3d_tpu_torch.data.synthetic import make_synthetic_branch  # noqa: E402
 from selfpose3d_tpu_torch.models import get_model  # noqa: E402
 from selfpose3d_tpu_torch.models.multi_person import cat_branches  # noqa: E402
+from selfpose3d_tpu_torch.models.norm import BatchNorm2d, BatchNorm3d  # noqa: E402
 from selfpose3d_tpu_torch.train import (  # noqa: E402
     create_train_state, make_ssv_train_step, make_supervised_train_step)
 from selfpose3d_tpu_torch.geometry.grid import compute_grid  # noqa: E402
@@ -152,6 +181,9 @@ from selfpose3d_tpu_torch.microbench.common import (  # noqa: E402
 from selfpose3d_tpu_torch.mini_panoptic import image_inked, run_realdata  # noqa: E402
 from selfpose3d_tpu_torch.ops import build, slicewarp  # noqa: E402
 from selfpose3d_tpu_torch.ops.unproject import compute_sample_grid, to_pixels  # noqa: E402
+from selfpose3d_tpu_torch.parallel import check as ddp_check  # noqa: E402
+from selfpose3d_tpu_torch.parallel import mesh  # noqa: E402
+from selfpose3d_tpu_torch.train import distribute  # noqa: E402
 from selfpose3d_tpu_torch.train import checkpoint  # noqa: E402
 from selfpose3d_tpu_torch.train.convergence import report, run_convergence  # noqa: E402
 from selfpose3d_tpu_torch.train.loop import train_epoch_ssv, validate_3d  # noqa: E402
@@ -1047,6 +1079,432 @@ def phase_realdata():
             "realdata validation batch (cam5_posenet.yaml, panoptic)": per_batch}
 
 
+# ----------------------------------------------------------------------- ddp
+
+DDP_DIR = os.path.join(ROOT, "build", "chip_smoke_ddp")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+DDP_TIMED = 20  # timed steps a path of (a), the paths alternating
+DDP_CLI_FRAMES = 4  # synthetic frames a split of (a)'s CLI epoch
+TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+
+def _torchrun_env():
+    """torch.distributed.run's variables for one process on this card."""
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(_free_port()))
+
+
+def _ddp_path(cfg, wrap):
+    """The model of seed 0, its train state and its SSV step (PoseNet and
+    L1 stages), through ``distribute`` when ``wrap``."""
+    model = get_model(cfg, device="cuda", seed=0)
+    state = create_train_state(cfg, model)
+    step = make_ssv_train_step(distribute(model, cfg) if wrap else model,
+                               train_posenet_stage=True, use_l1_stage=True)
+    return {"model": model, "state": state, "step": step,
+            "gen": torch.Generator().manual_seed(0)}
+
+
+def _host_params(model):
+    return {k: p.detach().float().cpu() for k, p in model.named_parameters() if p.requires_grad}
+
+
+def _first_steps(path, branches):
+    """A path's first two steps -> each step's loss terms and sampler
+    launches, the first step's gradients as the optimizer saw them and
+    its update of each trainable parameter (float32, on the host)."""
+    grads, before = {}, _host_params(path["model"])
+    apply = path["state"].apply_gradients
+
+    def record_and_apply():
+        if not grads:
+            grads.update({k: p.grad.detach().float().cpu()
+                          for k, p in path["model"].named_parameters() if p.grad is not None})
+        apply()
+
+    path["state"].apply_gradients = record_and_apply
+    losses, launches = [], []
+    for i in range(2):
+        slicewarp.reset_launches()
+        metrics = path["step"](path["state"], *branches, generator=path["gen"])
+        losses.append({k: float(v) for k, v in metrics.items()})
+        launches.append(dict(slicewarp.LAUNCHES))
+        if i == 0:
+            update = {k: v - before[k] for k, v in _host_params(path["model"]).items()}
+    del path["state"].apply_gradients  # the class's method again, no reference cycle
+    return losses, grads, launches, update
+
+
+def _terms_rel(a, b):
+    return {k: abs(a[k] - v) / max(abs(v), 1e-6) for k, v in b.items()}
+
+
+def _grads_l2(a, b):
+    """Per net, the relative L2 distance of gradients ``a`` from ``b``."""
+    out = {}
+    for net in ddp_check.NETS:
+        keys = [k for k in b if k.startswith(net)]
+        if keys:
+            diff = sum(float((a[k] - b[k]).pow(2).sum()) for k in keys)
+            norm = sum(float(b[k].pow(2).sum()) for k in keys)
+            out[net.rstrip(".")] = (diff / max(norm, 1e-30)) ** 0.5
+    return out
+
+
+def _spread(ms):
+    ms = sorted(ms)
+    return {"median": ms[len(ms) // 2], "min": ms[0], "max": ms[-1], "each": ms}
+
+
+def ddp_world_1():
+    """(a): cam5_posenet.yaml at full width, DDP over nccl at world size 1
+    against the plain step, same seed and frames. Two plain paths and the
+    DDP path take two steps each. The second plain path gives the plain
+    step's own run to run spread (cuDNN's backward algorithms and the
+    adjoint kernel's atomic adds sum in any order, and batch-statistics
+    BatchNorm's backward amplifies that to ~1.4e-2 of the backbone's
+    gradient), which bounds, per net, how far the DDP path's first
+    gradients and first Adam update may stray from the first plain
+    path's. The second step's loss terms are reported, not bounded: two
+    plain runs already differ there by percents (Adam's first step takes
+    the sign of gradients that noise decides). Then DDP_TIMED steps a
+    path, the paths alternating."""
+    cfg = load_config(os.path.join(ROOT, FLAGSHIP_YAML),
+                      overrides={"MULTI_PERSON": {"THRESHOLD": -100.0}})
+    branches = train_branches(cfg, cfg.TRAIN.BATCH_SIZE, seed=0, device="cuda")
+    per_step = ssv_step_launches(cfg)
+    _torchrun_env()
+    try:
+        dev = mesh.init_distributed()
+        assert dev == torch.device("cuda", 0) and torch.distributed.get_backend() == "nccl"
+        paths, first, resident = {}, {}, {}
+        for name, wrap in (("plain", False), ("plain again", False), ("ddp", True)):
+            gc.collect()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            paths[name] = _ddp_path(cfg, wrap)
+            first[name] = _first_steps(paths[name], branches)
+            resident[name] = (torch.cuda.memory_allocated() - before) / 2 ** 30
+            if name == "plain again":
+                del paths[name]
+                torch.cuda.empty_cache()
+        ms, peak = {"plain": [], "ddp": []}, {"plain": 0.0, "ddp": 0.0}
+        launches = {"plain": [], "ddp": []}
+        for i in range(DDP_TIMED):
+            for name in ("plain", "ddp") if i % 2 == 0 else ("ddp", "plain"):
+                p = paths[name]
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                slicewarp.reset_launches()
+                t0 = time.perf_counter()
+                p["step"](p["state"], *branches, generator=p["gen"])
+                torch.cuda.synchronize()
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+                launches[name].append(dict(slicewarp.LAUNCHES))
+                peak[name] = max(peak[name],
+                                 (torch.cuda.max_memory_allocated() - before) / 2 ** 30)
+        del paths, p
+        torch.cuda.empty_cache()
+    finally:
+        torch.distributed.destroy_process_group()
+        for k in TORCHRUN_VARS:
+            os.environ.pop(k, None)
+    for name in first:
+        runs = first[name][2] + launches.get(name, [])
+        assert all(c == per_step for c in runs), (name, runs, per_step)
+        for terms in first[name][0]:
+            assert all(math.isfinite(v) for v in terms.values()), (name, terms)
+    plain, again, ddp = (first[k] for k in ("plain", "plain again", "ddp"))
+    rel = [_terms_rel(ddp[0][i], plain[0][i]) for i in range(2)]
+    noise = [_terms_rel(again[0][i], plain[0][i]) for i in range(2)]
+    # the first step: the same work on the same weights, within bf16's
+    # rounding; the first gradients and Adam's first update: per net
+    # within three times the plain path's own run to run spread, and at
+    # least 1e-2
+    assert set(rel[0]) == set(ddp[0][0]) and max(rel[0].values()) <= 1e-2, rel[0]
+    assert set(ddp[1]) == set(plain[1]), "the DDP step's gradients cover other parameters"
+    g, g_noise = _grads_l2(ddp[1], plain[1]), _grads_l2(again[1], plain[1])
+    u, u_noise = _grads_l2(ddp[3], plain[3]), _grads_l2(again[3], plain[3])
+    for what, got, spread in (("gradients", g, g_noise), ("Adam's update", u, u_noise)):
+        bad = {k: (v, spread[k]) for k, v in got.items() if v > max(1e-2, 3 * spread[k])}
+        assert not bad, (f"first step's {what}, relative L2 per net", bad)
+    return per_step, {
+        "config": FLAGSHIP_YAML, "changed": {"MULTI_PERSON.THRESHOLD": -100.0},
+        "dtype": cfg.DTYPE, "batch": cfg.TRAIN.BATCH_SIZE, "backend": "nccl", "world": 1,
+        "first_two_steps_losses": {k: v[0] for k, v in first.items()},
+        "loss_terms_max_rel_diff": {"step 1": max(rel[0].values()), "step 2": max(rel[1].values()),
+                                    "step 2, plain run to run": max(noise[1].values())},
+        "first_step_grads_rel_l2": {"ddp": g, "plain run to run": g_noise},
+        "first_update_rel_l2": {"ddp": u, "plain run to run": u_noise},
+        "timed_steps": DDP_TIMED, "ms_per_step": {k: _spread(v) for k, v in ms.items()},
+        "ddp_minus_plain_median_ms": _spread(ms["ddp"])["median"] - _spread(ms["plain"])["median"],
+        "resident_gib": resident, "step_peak_above_resident_gib": peak,
+        "launches_per_step": {k: v[2][0] for k, v in first.items()}}
+
+
+def ddp_cli():
+    """(a'): ``cli.train_3d --distributed`` as torch.distributed.run starts
+    a process (its variables, nccl at world size 1) on cam5_posenet.yaml
+    with random weights: an epoch of DDP_CLI_FRAMES synthetic frames, its
+    validation on as many, its checkpoint, which a fresh train state
+    loads. The sampler launches are read from the CLI's report."""
+    from selfpose3d_tpu_torch.cli import train_3d
+
+    path = os.path.join(ROOT, FLAGSHIP_YAML)
+    out = os.path.join(DDP_DIR, "cli")
+    sets = {"DATASET.TRAIN_DATASET": "synthetic", "DATASET.TEST_DATASET": "synthetic",
+            "MULTI_PERSON.THRESHOLD": -100.0, "PRINT_FREQ": 1, "DEBUG.DEBUG": False,
+            "NETWORK.PRETRAINED_BACKBONE": "", "NETWORK.INIT_ROOTNET": "",
+            "TRAIN.END_EPOCH": 1, "OUTPUT_DIR": out, "LOG_DIR": out}
+    values = [f"{k}={json.dumps(v)}" for k, v in sets.items()]
+    argv = ["--cfg", path, "--distributed"] + [a for v in values for a in ("--set", v)]
+    cfg = train_3d.load_cli_config(argparse.Namespace(cfg=path, set=values))
+    datasets = train_3d.datasets
+
+    def cut(c):
+        splits = datasets(c)
+        for ds in splits:
+            ds.num_frames = DDP_CLI_FRAMES
+        return splits
+
+    train_3d.datasets = cut
+    _torchrun_env()
+    rep = {}
+    slicewarp.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        precision = train_3d.main(argv, report=rep)
+    finally:
+        train_3d.datasets = datasets
+        for k in TORCHRUN_VARS:
+            os.environ.pop(k, None)
+    seconds = time.perf_counter() - t0
+    launched = dict(slicewarp.LAUNCHES)
+    assert not torch.distributed.is_initialized(), "the CLI left its group formed"
+    meters, val = rep["epoch"], rep["validation"]
+    steps = DDP_CLI_FRAMES // cfg.TRAIN.BATCH_SIZE
+    batches = -(-DDP_CLI_FRAMES // cfg.TEST.BATCH_SIZE)
+    per_step, per_batch = ssv_step_launches(cfg), sampler_counts(cfg.DATASET.CAMERA_NUM, 1, 0)
+    assert meters["steps"] == steps, meters["steps"]
+    assert meters["launches"] == times(per_step, steps), (meters["launches"], per_step)
+    assert val["launches"] == times(per_batch, batches), (val["launches"], per_batch)
+    assert launched == {k: meters["launches"][k] + val["launches"][k] for k in launched}, launched
+    finite_meters(meters)
+    assert precision is not None and all(math.isfinite(a) for a in val["aps"])
+    run_dir = os.path.join(out, cfg.DATASET.TRAIN_DATASET, get_model_name(cfg)[0],
+                           os.path.basename(path).split(".")[0])
+    fresh = get_model(cfg, device="cuda", seed=1)
+    state, epoch, _ = checkpoint.load_checkpoint(run_dir, create_train_state(cfg, fresh))
+    assert epoch == 1 and state.step == steps, (epoch, state.step)
+    del fresh, state
+    torch.cuda.empty_cache()
+    return per_step, {
+        "argv": [os.path.relpath(a, ROOT) if a.startswith(ROOT) else a for a in argv],
+        "frames": DDP_CLI_FRAMES, "seconds": seconds, "epoch": epoch_report(meters),
+        "validation_batches": batches, "precision": precision,
+        "launches": {"train": meters["launches"], "validation": val["launches"]},
+        "checkpoint_loads_at_step": steps}
+
+
+PAIR_CASES = ("ssv", "ssv_bn_eval")
+PAIR_EPOCH = small_train_cfg().TRAIN.L1_EPOCH  # the PoseNet and L1 stages
+
+
+def _pair_branches():
+    return train_branches(small_train_cfg(), 2, seed=0, device="cpu")
+
+
+# BatchNorm layers of the flagship's kinds in bfloat16: a backbone layer
+# (unmasked) and a PoseNet V2V layer (masked, the mask's examples on both
+# ranks): (global input shape, mask)
+BN_CASES = {"2d": ((4, 64, 64, 120), None), "3d masked": ((4, 32, 16, 16, 16), [1, 0, 1, 1])}
+
+
+def bn_bf16_case():
+    """The port's train-mode BatchNorm on this rank's rows of each BN_CASES
+    input, bfloat16 on the card (across ranks the fused kernels of
+    models/norm.py:_GlobalBatchNorm; in one process torch's batch norm and
+    the masked branch) -> per case the output and input gradient of
+    sum(y * cot) (this rank's rows), this rank's share of the weight's and
+    bias's gradients, the running statistics, and the bytes autograd keeps
+    for the backward beside the input's."""
+    out = {}
+    for name, (shape, mask) in BN_CASES.items():
+        gen = torch.Generator().manual_seed(7)
+        x = torch.randn(shape, generator=gen) * 2.0 + 0.5
+        cot = torch.randn(shape, generator=gen)
+        b, r = shape[0] // mesh.world(), mesh.rank()
+        rows = slice(r * b, (r + 1) * b)
+        bn = (BatchNorm2d if len(shape) == 4 else BatchNorm3d)(shape[1]).cuda().train()
+        xr = x[rows].cuda().bfloat16().requires_grad_()
+        m = None if mask is None else torch.tensor(mask[rows], dtype=torch.bool).cuda()
+        kept = [0]
+
+        def keep(t):
+            kept[0] += t.numel() * t.element_size()
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(keep, lambda t: t):
+            y = bn(xr, m)
+        (y.float() * cot[rows].cuda()).sum().backward()
+        host = {"y": y.detach().float(), "dx": xr.grad.float(), "dw": bn.weight.grad,
+                "db": bn.bias.grad, "mean": bn.running_mean, "var": bn.running_var}
+        out[name] = {k: v.cpu().numpy() for k, v in host.items()}  # pickled by value
+        out[name].update(saved=kept[0], x_bytes=xr.numel() * xr.element_size())
+    return out
+
+
+def compare_bn(ranks, one):
+    """The ranks' bn_bf16_case against one process's: output and input
+    gradient as relative L2, the weight and bias gradients (the ranks'
+    sum) as the largest error over the largest entry, the running
+    statistics' excess over rel 1e-4; each case's bytes kept."""
+    out = {}
+    for name, want in one.items():
+        got = [r[name] for r in ranks]
+        res = {}
+        for k in ("y", "dx"):
+            d = np.concatenate([g[k] for g in got]) - want[k]
+            res[k] = float(np.linalg.norm(d) / np.linalg.norm(want[k]))
+        for k in ("dw", "db"):
+            res[k] = float(np.abs(got[0][k] + got[1][k] - want[k]).max() / np.abs(want[k]).max())
+        res["stats_excess"] = max(float((np.abs(g[k] - want[k]) - 1e-4 * np.abs(want[k])).max())
+                                  for g in got for k in ("mean", "var"))
+        res["kept_over_input_bytes"] = [g["saved"] - g["x_bytes"] for g in got]
+        out[name] = res
+    return out
+
+
+def _ddp_rank(rank, workdir, queues):
+    """A rank of the gloo pair on the one card: the small config's SSV
+    step on this rank's example of the pair's batch of 2, in both BatchNorm
+    modes, and the bfloat16 BatchNorm cases; rank 0 sends its records to
+    the main process, both ranks their BatchNorm results."""
+    torch.cuda.set_device(0)
+    store = torch.distributed.FileStore(os.path.join(workdir, "store"), 2)
+    torch.distributed.init_process_group("gloo", store=store, rank=rank, world_size=2)
+    recs = {}
+    try:
+        for name in PAIR_CASES:
+            recs[name] = ddp_check.train_step_record(
+                small_train_cfg(), _pair_branches(), device="cuda", epoch=PAIR_EPOCH,
+                bn_eval=name.endswith("_bn_eval"))
+        queues["bn"].put((rank, bn_bf16_case()))
+    finally:
+        torch.distributed.destroy_process_group()
+    if rank == 0:
+        for name in PAIR_CASES:
+            queues[name].put(ddp_check.pack(recs[name]))
+        for _ in PAIR_CASES:
+            queues["ack"].get()
+
+
+def _receive(q, ctx):
+    """The next item of ``q``, raising the ranks' error if one fails first."""
+    import queue
+    while True:
+        try:
+            return q.get(timeout=5)
+        except queue.Empty:
+            if ctx.join(timeout=0):
+                raise RuntimeError("the ranks ended without sending their records")
+
+
+def ddp_gloo_pair():
+    """(b): two gloo ranks on the one card (nccl takes one rank a GPU) at
+    one example each against one process at 2 on the card."""
+    import torch.multiprocessing as tmp
+    shutil.rmtree(DDP_DIR, ignore_errors=True)  # a failed run's store would hang the rendezvous
+    os.makedirs(DDP_DIR)
+    smp = tmp.get_context("spawn")
+    queues = {name: smp.Queue() for name in PAIR_CASES + ("ack", "bn")}
+    ctx = tmp.spawn(_ddp_rank, args=(DDP_DIR, queues), nprocs=2, join=False)
+    cfg = small_train_cfg()
+    out, per_step = {}, ssv_step_launches(cfg)
+    for name in PAIR_CASES:
+        one = ddp_check.train_step_record(cfg, _pair_branches(), device="cuda", epoch=PAIR_EPOCH,
+                                          bn_eval=name.endswith("_bn_eval"))
+        got = ddp_check.unpack(_receive(queues[name], ctx))
+        c = ddp_check.compare(got, one)
+        queues["ack"].put(name)
+        bad = {k: v for k, v in ddp_check.failures(c, name.endswith("_bn_eval")).items() if v}
+        assert not bad, (name, bad)
+        assert got["launches"] == one["launches"] == per_step, (got["launches"], per_step)
+        out[name] = {
+            "loss_terms_max_rel": max(c["terms"].values()),
+            "running_stats_excess_over_rel_bar": c["stats_excess"],
+            "grad_tensor_share_max": max(c["grad_share"].values()),
+            "grad_net": c["nets"],
+            "params_after_adam_max_abs_decided": max(v[0] for v in c["params"].values()),
+            "params_after_adam_max_abs": max(v[1] for v in c["params"].values()),
+            "ranks_bit_equal": c["ranks_equal"], "launches_per_rank_step": got["launches"],
+            "losses_mean_over_ranks": got["metrics"], "losses_one_process": one["metrics"]}
+    ranks = dict(_receive(queues["bn"], ctx) for _ in range(2))
+    bn = compare_bn([ranks[0], ranks[1]], bn_bf16_case())
+    # bfloat16 rounds the output and the input gradient once on either
+    # path: relative L2 1e-2; the float32 sums of the weight and bias
+    # gradients 1e-2 of their largest entry; running statistics as BARS;
+    # no float32 copy of the input kept (its bytes and 4 KiB of vectors)
+    for name, r in bn.items():
+        assert max(r["y"], r["dx"], r["dw"], r["db"]) <= 1e-2, (name, r)
+        assert r["stats_excess"] <= ddp_check.BARS["stats_abs"], (name, r)
+        assert all(0 <= k <= 4096 for k in r["kept_over_input_bytes"]), (name, r)
+    out["batchnorm_bf16"] = bn
+    while not ctx.join():
+        pass
+    shutil.rmtree(DDP_DIR)
+    return per_step, out
+
+
+def phase_ddp():
+    """Phase ddp; returns its paths' launch counts."""
+    smi = card_line()
+    t0 = time.perf_counter()
+    per_step, one = ddp_world_1()
+    ms = one["ms_per_step"]
+    print(f"ddp: world size 1 over nccl, cam5_posenet.yaml batch 1 bf16, {DDP_TIMED} steps a "
+          f"path alternating: ms per step median (min, max) plain {ms['plain']['median']} "
+          f"({ms['plain']['min']}, {ms['plain']['max']}) ddp {ms['ddp']['median']} "
+          f"({ms['ddp']['min']}, {ms['ddp']['max']}); step peak above resident GiB plain "
+          f"{one['step_peak_above_resident_gib']['plain']} ddp "
+          f"{one['step_peak_above_resident_gib']['ddp']}, resident GiB plain "
+          f"{one['resident_gib']['plain']} ddp {one['resident_gib']['ddp']}; loss terms max rel "
+          f"diff {one['loss_terms_max_rel_diff']}; first step's gradients rel L2 "
+          f"{one['first_step_grads_rel_l2']}; first Adam update rel L2 "
+          f"{one['first_update_rel_l2']} ({smi})", flush=True)
+    cli_step, cli = ddp_cli()
+    print(f"ddp: cli.train_3d --distributed, world size 1 over nccl, cam5_posenet.yaml, "
+          f"{cli['frames']} synthetic frames: {cli['seconds']} s with validation and checkpoint, "
+          f"steps/s {cli['epoch']['steps_per_s']} ({smi})", flush=True)
+    pair_step, pair = ddp_gloo_pair()
+    for name in PAIR_CASES:
+        r = pair[name]
+        print(f"ddp: gloo pair on one card vs one process, small f32 {name}: loss terms max rel "
+              f"{r['loss_terms_max_rel']}, gradient tensor share max "
+              f"{r['grad_tensor_share_max']}, parameters after Adam max abs (decided) "
+              f"{r['params_after_adam_max_abs_decided']}, running statistics excess "
+              f"{r['running_stats_excess_over_rel_bar']}, launches a rank step "
+              f"{r['launches_per_rank_step']} ({smi}; a correctness check, not a scaling "
+              f"number: one card)", flush=True)
+    print(f"ddp: gloo pair on one card vs one process, bfloat16 BatchNorm (y, dx relative L2; "
+          f"dw, db over their largest; bytes kept beyond the input's): "
+          f"{pair['batchnorm_bf16']} ({smi})", flush=True)
+    emit({"phase": "ddp", "world_1_nccl": one, "cli_world_1_nccl": cli, "gloo_pair": pair,
+          "bars": ddp_check.BARS, "seconds": time.perf_counter() - t0, "card": smi})
+    return {"ddp step, world size 1 over nccl (cam5_posenet.yaml)": per_step,
+            "ddp cli train step, world size 1 over nccl (cam5_posenet.yaml)": cli_step,
+            "ddp gloo pair, rank step (small f32)": pair_step}
+
+
 def identity_bar(hm, px, py, cot):
     """The bar of the inner-product identity <sample_view(h), g> == <h,
     adjoint(g)> (tests/test_torch_cuda.py ``_identity_bar``): 1e-5 of the
@@ -1730,6 +2188,8 @@ def main() -> int:
     stages = phase_stages()
     engine = phase_engine()
     engine.update(phase_realdata())
+    torch.cuda.empty_cache()
+    engine.update(phase_ddp())
     torch.cuda.empty_cache()
     paths = {"do_inference": launches_main, "SSV train step": train_launches, **paths,
              "stage 1 step": stages["stage1"]["launches_per_step"],

@@ -23,7 +23,10 @@ to find, and it imports nothing of JAX or of ``selfpose3d_tpu``:
   utils/      image decoding, PNG writing and the affine warp (no OpenCV),
               zip URIs, flips, debug dumps, meters, logging
   pseudo_labels/  the pseudo-label pipeline (s1-s8) with pluggable models
-  cli/        train_3d, evaluate (validate_3d), visualize
+  parallel/   data parallelism over processes (torch.distributed, DDP):
+              global-batch BatchNorm moments and loss reductions, and the
+              check that a W-rank step equals one process's
+  cli/        train_3d (--distributed), evaluate (validate_3d), visualize
   convert/    JAX parameter (or gradient) trees -> this package's state dicts
   microbench/ the measurement probes (3D conv, slice-warp variants,
               primitive rates), each with its CUDA kernel

@@ -11,22 +11,39 @@ config entry (a YAML value), e.g. ``--set TRAIN.END_EPOCH=30``. With
 DEBUG.DEBUG the SSV epochs write their debug dumps (PNG; the 3D plots of
 DEBUG.SAVE_3D_POSES / SAVE_3D_ROOTS need matplotlib) under
 ``<output dir>/debug``.
+
+``--distributed`` trains data-parallel, one process a GPU, each at
+TRAIN.BATCH_SIZE (``parallel/mesh.py``):
+
+    python -m torch.distributed.run --nproc_per_node=N \
+        -m selfpose3d_tpu_torch.cli.train_3d --distributed --cfg ...
+
+Each process joins the group that ``torch.distributed.run`` describes
+(nccl on ``cuda:LOCAL_RANK``; with ``--device cpu``, gloo on the CPU),
+unless its caller has formed one, and leaves the group it joined at the
+end. The model goes into DDP after the train state is built (and resumed).
+Rank 0 logs, writes TensorBoard scalars, the debug dumps and the
+checkpoints.
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 from typing import Optional
 
+import torch.distributed
 import yaml
 
 from selfpose3d_tpu_torch.config import load_config
 from selfpose3d_tpu_torch.data.registry import get_dataset
 from selfpose3d_tpu_torch.device import resolve_device
 from selfpose3d_tpu_torch.models import get_model
+from selfpose3d_tpu_torch.parallel import mesh
 from selfpose3d_tpu_torch.train import checkpoint as ckpt
 from selfpose3d_tpu_torch.train.loop import train_epoch_ssv, train_epoch_supervised, validate_3d
+from selfpose3d_tpu_torch.train.step import distribute
 from selfpose3d_tpu_torch.train.train_state import create_train_state
 from selfpose3d_tpu_torch.utils.logging_utils import TBWriter, create_logger
 
@@ -86,11 +103,19 @@ def main(argv=None, report: Optional[dict] = None) -> float:
     (``epoch``) and its validation's ``metrics_out`` (``validation``)."""
     p = argparse.ArgumentParser(description="Train the multi-view 3D pose network")
     add_common_args(p)
+    p.add_argument("--distributed", action="store_true",
+                   help="data-parallel over the processes of torch.distributed.run, "
+                        "one device each")
     args = p.parse_args(argv)
     cfg = load_cli_config(args)
-    logger, output_dir, tb_dir = create_logger(cfg, args.cfg, "train")
     dev = resolve_device(args.device)
-    logger.info("device: %s", dev)
+    joined = args.distributed and not torch.distributed.is_initialized()
+    if args.distributed:
+        dev = mesh.init_distributed("nccl" if dev.type == "cuda" else "gloo")
+    logger, output_dir, tb_dir = create_logger(cfg, args.cfg, "train")
+    if mesh.rank() != 0:
+        logger.setLevel(logging.WARNING)
+    logger.info("device: %s, %d process(es)", dev, mesh.world())
 
     model = get_model(cfg, device=dev, seed=0)
     load_stages(cfg, model, logger)
@@ -102,8 +127,10 @@ def main(argv=None, report: Optional[dict] = None) -> float:
     if cfg.TRAIN.RESUME:
         state, start_epoch, best_precision = ckpt.load_checkpoint(output_dir, state)
         logger.info("resumed at epoch %d (best %.4f)", start_epoch, best_precision)
+    if args.distributed:
+        model = distribute(model, cfg, range(start_epoch, cfg.TRAIN.END_EPOCH))
 
-    writer = TBWriter(tb_dir)
+    writer = TBWriter(tb_dir) if mesh.rank() == 0 else None
     load_images = not args.no_images
     for epoch in range(start_epoch, cfg.TRAIN.END_EPOCH):
         logger.info("Epoch: %d", epoch)
@@ -125,7 +152,10 @@ def main(argv=None, report: Optional[dict] = None) -> float:
             best_precision = precision
         logger.info("saving checkpoint (best: %s)", is_best)
         ckpt.save_checkpoint(output_dir, state, epoch + 1, best_precision, is_best)
-    writer.close()
+    if writer is not None:
+        writer.close()
+    if joined:
+        torch.distributed.destroy_process_group()
     return best_precision
 
 

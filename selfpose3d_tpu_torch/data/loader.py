@@ -93,7 +93,9 @@ class PrefetchLoader:
     permutation. With ``process_count > 1`` every process draws the same
     order and keeps its ``process_index``-th stripe, so data-parallel
     processes consume disjoint data; ``batch_size`` is the per-process
-    batch.
+    batch. With ``drop_last`` the order is first cut to a multiple of
+    ``process_count``, so every process takes the same number of batches
+    (those of the global batches of process_count * batch_size).
     """
 
     def __init__(
@@ -124,7 +126,7 @@ class PrefetchLoader:
     @property
     def _local_samples(self) -> int:
         n, r = divmod(self.num_samples, self.process_count)
-        return n + (1 if self.process_index < r else 0)
+        return n + (1 if self.process_index < r and not self.drop_last else 0)
 
     def __len__(self):
         if self.drop_last:
@@ -136,6 +138,8 @@ class PrefetchLoader:
         order = np.arange(self.num_samples)
         if self.shuffle:
             np.random.RandomState(self.seed + self._epoch).shuffle(order)
+        if self.drop_last:
+            order = order[: len(order) - len(order) % self.process_count]
         order = order[self.process_index :: self.process_count]
         self._epoch += 1
         batches = [

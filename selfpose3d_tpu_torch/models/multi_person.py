@@ -20,6 +20,13 @@ A sub-network the JAX model never calls under the flags is not built, so
 the state dict's keys are those ``convert/from_jax.py`` gives for the JAX
 variables. Every ``stop_gradient`` of the JAX package is a ``detach()``
 here.
+
+Across W > 1 ranks (``parallel/mesh.py``) a training call computes its
+terms over the global batch, as the JAX package's one program over a
+sharded batch does: a gate (``any_valid``) is reduced with MAX, a ratio
+contributes ``W * local numerator / global denominator`` on each rank, so
+that DDP's mean over ranks is the global ratio, and no gradient passes
+through a count. Calls with ``train=False`` stay local.
 """
 
 from __future__ import annotations
@@ -39,10 +46,17 @@ from selfpose3d_tpu_torch.models.root_net import RootNet
 from selfpose3d_tpu_torch.ops.gaussian import render_gaussian_heatmaps
 from selfpose3d_tpu_torch.ops.matching import masked_assignment_cost
 from selfpose3d_tpu_torch.ops.proposal import match_proposals_to_gt
+from selfpose3d_tpu_torch.parallel import mesh
 
 
 def _mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.mean((a - b) ** 2)
+
+
+def _any_valid(valid: torch.Tensor, across: bool) -> torch.Tensor:
+    """1.0 where any candidate is valid (on any rank ``across`` them), else 0.0."""
+    gate = (valid.sum() > 0).to(torch.float32)
+    return mesh.all_reduce_max(gate) if across else gate
 
 
 def cat_branches(*branches: AugBranch) -> AugBranch:
@@ -59,6 +73,20 @@ def cat_branches(*branches: AugBranch) -> AugBranch:
         return torch.cat(xs, dim=0)
 
     return cat(*branches)
+
+
+def branch_rows(branch: AugBranch, start: int, stop: int) -> AugBranch:
+    """Rows [start, stop) of a branch, field by field (a rank's part of a
+    global batch)."""
+
+    def rows(x):
+        if x is None:
+            return None
+        if dataclasses.is_dataclass(x):
+            return type(x)(**{f.name: rows(getattr(x, f.name)) for f in dataclasses.fields(x)})
+        return x[start:stop]
+
+    return rows(branch)
 
 
 def _backbone(c: Config, dtype: torch.dtype) -> PoseResNet:
@@ -209,8 +237,11 @@ class MultiPersonPoseNetSSV(nn.Module):
         cand_valid: torch.Tensor,
         joints: torch.Tensor,
         joints_vis: torch.Tensor,
+        across: bool = False,
     ) -> torch.Tensor:
         """Hungarian-matched normalised L1 (ref: multi_person_posenet_ssv.py:155-194).
+        ``across`` ranks, L1_ATTN drops the worst term of the global
+        (W*B*V,) vector, the first among equals in rank order.
 
         Args:
           kps_2d:     (B, V, K, J, 2) projected candidate joints (pixels).
@@ -242,10 +273,19 @@ class MultiPersonPoseNetSSV(nn.Module):
         if c.L1_ATTN:
             # drop the single worst view-sample term (ref: :187-191), the
             # first one among equals
-            worst = int(torch.nonzero(losses.detach() == losses.detach().max())[0])
+            d = losses.detach()
             keep = torch.ones_like(losses)
-            keep[worst] = 0.0
-            return (losses * keep).sum() / (losses.shape[0] - 1)
+            if not across:
+                keep[int(torch.nonzero(d == d.max())[0])] = 0.0
+                return (losses * keep).sum() / (losses.shape[0] - 1)
+            W, r = mesh.world(), mesh.rank()
+            top = d.max()
+            held = top == mesh.all_reduce_max(top)
+            # the first rank holding the global worst term drops it
+            first = -int(mesh.all_reduce_max(torch.where(held, -r, -W).to(torch.int64)))
+            if first == r:
+                keep[int(torch.nonzero(d == top)[0])] = 0.0
+            return W * (losses * keep).sum() / (W * losses.shape[0] - 1)
         return losses.mean()
 
     def _set_modes(self, net_train: bool) -> None:
@@ -299,6 +339,7 @@ class MultiPersonPoseNetSSV(nn.Module):
         losses: Dict[str, torch.Tensor] = {}
         B = branch1.batch_size
         net_train = train and not bn_eval
+        across = train and mesh.world() > 1
         self._set_modes(net_train)
 
         branches_all = cat_branches(branch1, branch2, branch3)  # (3B, ...)
@@ -383,7 +424,7 @@ class MultiPersonPoseNetSSV(nn.Module):
                 heatmaps1, branch1.cam, branch1.trans, branch1.orig_wh, gc_pose,
                 hflip=branch1.hflip, bucketed=False,
             )
-            any_valid = (valid.sum() > 0).to(torch.float32)
+            any_valid = _any_valid(valid, across)
             kps = project_points_with_trans(
                 pred1.reshape(B, 1, Kp * J, 3), branch1.cam, branch1.trans
             ).reshape(B, V, Kp, J, 2)
@@ -401,7 +442,7 @@ class MultiPersonPoseNetSSV(nn.Module):
         )
         pred1, pred2 = pred_12[:B], pred_12[B:]
         valid = valid_12[:B]
-        any_valid = (valid.sum() > 0).to(torch.float32)
+        any_valid = _any_valid(valid, across)
 
         # cross-projection: pred2 into branch1's frame, pred1 into branch2's
         # (ref: :432-437); the cameras are shared, trans and hflip differ
@@ -427,8 +468,8 @@ class MultiPersonPoseNetSSV(nn.Module):
         if c.USE_L1 and use_l1_stage:
             kps21, kps12 = kps_cross[:B], kps_cross[B:]
             losses["loss_pose3d_l1_ssv"] = (
-                self._l1_matching_loss(kps12, valid, branch2.joints, branch2.joints_vis)
-                + self._l1_matching_loss(kps21, valid, branch1.joints, branch1.joints_vis)
+                self._l1_matching_loss(kps12, valid, branch2.joints, branch2.joints_vis, across)
+                + self._l1_matching_loss(kps21, valid, branch1.joints, branch1.joints_vis, across)
             ) * c.L1_WEIGHT * any_valid
         return pred_out(pred2), heatmaps3, grid_centers, losses
 
@@ -523,5 +564,8 @@ class MultiPersonPoseNet(nn.Module):
             gt = torch.gather(branch.joints_3d, 1, gt_idx.expand(B, K, J, 3))
             w = torch.gather(branch.joints_3d_vis[..., 0:1], 1, gt_idx.expand(B, K, J, 1))
             per_cand = (poses * w - gt * w).abs().mean(dim=(-1, -2))  # (B, K)
-            losses["loss_cord"] = (per_cand * valid).sum() / valid.sum().clamp(min=1.0)
+            count, scale = valid.sum(), 1.0
+            if train and mesh.world() > 1:  # the global batch's mean
+                count, scale = mesh.all_reduce_sum(count.detach()), float(mesh.world())
+            losses["loss_cord"] = scale * (per_cand * valid).sum() / count.clamp(min=1.0)
         return pred, heatmaps, grid_centers, losses

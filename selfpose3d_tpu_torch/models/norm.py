@@ -14,6 +14,14 @@ one), with torch momentum 0.1 == flax momentum 0.9. An optional ``mask``
 over the batch axis restricts the statistics to the selected examples;
 every example is still normalised.
 
+Across W > 1 ranks (``parallel/mesh.py``) train mode takes the moments of
+the global batch (``_GlobalBatchNorm``): float32 sums of x and x^2 and the
+count, summed over ranks, with flax's fast variance E[x^2] - E[x]^2
+(``selfpose3d_tpu/models/norm.py:133-142``); its backward sums the
+statistics' cotangents over ranks, so that it reaches every rank's
+examples. The running averages then move alike on every rank. At world
+size 1 nothing changes.
+
 Parameters and buffers keep ``nn.BatchNorm{2,3}d``'s names and float32, so
 reference state dicts load unchanged. Convolutions hold float32 parameters
 too and cast them to the activation dtype at use, so an optimizer updates
@@ -28,6 +36,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from selfpose3d_tpu_torch.parallel import mesh
+
 
 class _FlaxBatchNorm:
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -38,7 +48,9 @@ class _FlaxBatchNorm:
             s = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
             b = self.bias.float() - self.running_mean.float() * s
             return x * s.to(x.dtype).view(shape) + b.to(x.dtype).view(shape)
-        if mask is None:
+        if mesh.world() > 1:
+            y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, mask, self.eps)
+        elif mask is None:
             y, mean, invstd = torch.native_batch_norm(
                 x, self.weight, self.bias, None, None, True, 0.0, self.eps
             )
@@ -57,6 +69,96 @@ class _FlaxBatchNorm:
             self.running_var.mul_(1.0 - m).add_(var.clamp_min(0.0), alpha=m)
             self.num_batches_tracked += 1
         return y
+
+
+def _dims(x: torch.Tensor) -> list:
+    return [0] + list(range(2, x.dim()))
+
+
+def _memory_format(x: torch.Tensor) -> torch.memory_format:
+    """The layout the fused kernels take ``x`` in (that of nn.SyncBatchNorm)."""
+    if x.dim() == 4 and x.is_contiguous(memory_format=torch.channels_last):
+        return torch.channels_last
+    return torch.contiguous_format
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over every rank's batch -> (y, mean, biased var).
+
+    Forward: each rank's float32 sums of x and x^2 over the examples of
+    ``mask`` (all without one) and their count, summed over ranks, give the
+    global mean and E[x^2] - mean^2. Backward: the sums of dy and dy*(x -
+    mean) over all of this rank's examples are summed over ranks, as the
+    moments' cotangents; every example gets dy * weight * invstd, and an
+    example of the mask also its share of the moments' gradient. The
+    weight and bias gradients stay this rank's (DDP averages them).
+
+    Only ``x`` in its own dtype and (C,) vectors are kept for the backward,
+    as ``torch.native_batch_norm`` keeps. On CUDA the per-rank sums and the
+    input gradient are the fused kernels ``nn.SyncBatchNorm`` runs
+    (``torch.batch_norm_stats``, ``batch_norm_backward_reduce``,
+    ``batch_norm_backward_elemt``, whose float32 accumulation reads a
+    bfloat16 ``x`` as it lies); on the CPU, which has no such kernels, the
+    same sums in float32 torch ops."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, mask, eps):
+        C, shape = x.shape[1], (1, -1) + (1,) * (x.dim() - 2)
+        x = x.contiguous(memory_format=_memory_format(x))
+        xs = x if mask is None else x[mask]
+        n = xs.numel() // C
+        if n == 0:  # no example of this rank in the mask
+            m = v = torch.zeros(C, dtype=torch.float32, device=x.device)
+        elif x.is_cuda:
+            m, invstd = torch.batch_norm_stats(xs, eps)
+            v = invstd.pow(-2) - eps
+        else:
+            v, m = torch.var_mean(xs.float(), dim=_dims(xs), unbiased=False)
+        local = torch.cat([n * m, n * (v + m * m), m.new_full((1,), n)])
+        sums = mesh.all_reduce_sum(local)
+        count = sums[2 * C :]
+        mean = sums[:C] / count
+        var = (sums[C : 2 * C] / count - mean * mean).clamp_min(0.0)
+        invstd = torch.rsqrt(var + eps)
+        s = weight.float() * invstd
+        b = bias.float() - mean * s
+        y = torch.addcmul(b.to(x.dtype).view(shape), x, s.to(x.dtype).view(shape))
+        ctx.save_for_backward(x, weight, mean, invstd, mask, count)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _var):
+        x, weight, mean, invstd, mask, count = ctx.saved_tensors
+        C, shape = x.shape[1], (1, -1) + (1,) * (x.dim() - 2)
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        dy = dy.contiguous(memory_format=_memory_format(x))
+        w = weight.float()
+        if x.is_cuda:
+            sum_dy, sum_dy_xmu, gw, gb = torch.batch_norm_backward_reduce(
+                dy, x, mean, invstd, w, need_x, need_w, need_b)
+        else:
+            dyf, xmu = dy.float(), x.float() - mean.view(shape)
+            sum_dy, sum_dy_xmu = dyf.sum(_dims(x)), (dyf * xmu).sum(_dims(x))
+            gw, gb = sum_dy_xmu * invstd, sum_dy
+        dx = None
+        if need_x:
+            g = mesh.all_reduce_sum(torch.cat([sum_dy, sum_dy_xmu]))
+            k = (w * invstd).view(shape)
+            if x.is_cuda:
+                dx = torch.batch_norm_backward_elemt(
+                    dy, x, mean, invstd, w, g[:C], g[C:], count.to(torch.int32))
+                if mask is not None:  # outside the mask: no share of the moments'
+                    out = ~mask.view((-1,) + (1,) * (x.dim() - 1))
+                    dx = torch.where(out, dy * k.to(dy.dtype), dx)
+            else:
+                share = (g[:C] / count).view(shape) + xmu * (
+                    invstd * invstd * g[C:] / count).view(shape)
+                if mask is not None:
+                    share = share * mask.view((-1,) + (1,) * (x.dim() - 1))
+                dx = ((dyf - share) * k).to(x.dtype)
+        return (dx, gw.to(weight.dtype) if need_w else None,
+                gb.to(weight.dtype) if need_b else None, None, None)
 
 
 class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):

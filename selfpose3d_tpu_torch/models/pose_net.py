@@ -10,7 +10,7 @@ One rule picks the sampler: where a gradient must reach the heatmaps
 ``sample_view``, whose backward is the adjoint kernel; otherwise one
 ``sample_views_mean`` launch samples all views. Train mode
 (``module.training``) restricts the BatchNorm statistics to the valid
-candidates.
+candidates (of every rank's batch, across ranks).
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from selfpose3d_tpu_torch.geometry.grid import axis_offsets, compute_grid
 from selfpose3d_tpu_torch.models.v2v_net import V2VNet
 from selfpose3d_tpu_torch.ops.softargmax import soft_argmax_ndhwc
 from selfpose3d_tpu_torch.ops.unproject import sample_cubes
+from selfpose3d_tpu_torch.parallel import mesh
 
 
 class PoseNet(nn.Module):
@@ -112,7 +113,11 @@ class PoseNet(nn.Module):
         bn_mask = None
         if self.training:
             sel = valid.reshape(B * K) > 0
-            if bool(sel.any()) and not bool(sel.all()):
+            if mesh.world() > 1:
+                # the global batch's: the valid candidates of every rank
+                # (a mask of all of them is the unmasked batch)
+                bn_mask = sel if mesh.agree_max(int(sel.any())) else None
+            elif bool(sel.any()) and not bool(sel.all()):
                 bn_mask = sel
         scored = self.v2v_net(cubes, bn_mask)  # (B*K, X, Y, Z, J) float32
 

@@ -30,6 +30,7 @@ from selfpose3d_tpu_torch.ops.proposal import (
     voxel_index_to_world,
 )
 from selfpose3d_tpu_torch.ops.unproject import unproject_heatmaps
+from selfpose3d_tpu_torch.parallel import mesh
 
 
 class RootNet(nn.Module):
@@ -123,6 +124,12 @@ class RootNet(nn.Module):
         reference's distributions: randint(1, P) per group, uniform x and y,
         one uniform z base per sample + N(0, 50^2), noise 0.02 * N(0, 1).
 
+        Across ranks (``parallel/mesh.py``) the batch is this rank's part of
+        a global batch of ``world`` equal parts. The generator (seeded alike
+        on every rank) then draws at the global folded shape and the rank
+        keeps its rows of each group, rows ``g*world*b + rank*b ... + b``
+        for b = B / groups; at world 1 the draws are those of one process.
+
         Returns (root_cubes_syn (B, X, Y, Z), target_cubes (B, X, Y, Z)).
         """
         B, V = cam.R.shape[:2]
@@ -137,12 +144,19 @@ class RootNet(nn.Module):
             def uniform(shape, lo, hi):
                 return lo + (hi - lo) * torch.rand(shape, generator=generator)
 
+            rank, world = mesh.rank(), mesh.world()
+            Bg = B * world
             num_roots = torch.randint(1, P, (groups,), generator=generator)
-            x = uniform((B, P), min_x, max_x)
-            y = uniform((B, P), min_y, max_y)
-            z = uniform((B, 1), min_z, max_z) + torch.randn((B, P), generator=generator) * 50.0
+            x = uniform((Bg, P), min_x, max_x)
+            y = uniform((Bg, P), min_y, max_y)
+            z = uniform((Bg, 1), min_z, max_z) + torch.randn((Bg, P), generator=generator) * 50.0
             roots = torch.stack([x, y, z], dim=-1)
-            noise = 0.02 * torch.randn((B, V, 1, H, W), generator=generator)
+            noise = 0.02 * torch.randn((Bg, V, 1, H, W), generator=generator)
+            if world > 1:
+                b = B // groups
+                rows = (torch.arange(groups)[:, None] * (world * b) + rank * b
+                        + torch.arange(b)[None]).reshape(-1)
+                roots, noise = roots[rows], noise[rows]
         else:
             num_roots = torch.as_tensor(inject["counts"]).to(torch.int64)
             roots = torch.as_tensor(inject["roots"], dtype=torch.float32)

@@ -1,5 +1,8 @@
 from selfpose3d_tpu_torch.train.schedule import multistep_lr
 from selfpose3d_tpu_torch.train.step import (
+    SSVLosses,
+    distribute,
+    inner_model,
     make_inference_step,
     make_ssv_debug_forward,
     make_ssv_train_step,
@@ -13,8 +16,11 @@ from selfpose3d_tpu_torch.train.train_state import (
 )
 
 __all__ = [
+    "SSVLosses",
     "TrainState",
     "create_train_state",
+    "distribute",
+    "inner_model",
     "make_inference_step",
     "make_optimizer",
     "make_ssv_debug_forward",

@@ -21,6 +21,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
+from selfpose3d_tpu_torch.parallel import mesh
 from selfpose3d_tpu_torch.train.train_state import TrainState
 
 _EPOCH_FILE = re.compile(r"^epoch_(\d+)\.pt$")
@@ -37,8 +38,18 @@ def _epoch_path(output_dir: str, epoch: int) -> str:
 def save_checkpoint(output_dir: str, state: TrainState, epoch: int, precision: float,
                     is_best: bool) -> str:
     """Write the checkpoint of ``epoch`` (completed epochs) and, with
-    ``is_best``, record it as the best (ref: utils.py:109-115); -> its path."""
+    ``is_best``, record it as the best (ref: utils.py:109-115); -> its path.
+    Across ranks only rank 0 writes, the model inside any DDP wrapper
+    (``state.model``, so the keys are the model's), and every rank waits
+    at a barrier until the file is there."""
     path = _epoch_path(output_dir, epoch)
+    if mesh.rank() == 0:
+        _write(path, state, epoch, precision, is_best)
+    mesh.barrier()
+    return path
+
+
+def _write(path: str, state: TrainState, epoch: int, precision: float, is_best: bool) -> None:
     os.makedirs(os.path.dirname(path), exist_ok=True)
     payload = {
         "model": state.model.state_dict(),
@@ -50,9 +61,8 @@ def save_checkpoint(output_dir: str, state: TrainState, epoch: int, precision: f
     torch.save(payload, tmp)
     os.replace(tmp, path)  # a reader never sees half a file
     if is_best:
-        with open(os.path.join(_ckpt_dir(output_dir), "best_epoch.txt"), "w") as f:
+        with open(os.path.join(os.path.dirname(path), "best_epoch.txt"), "w") as f:
             f.write(str(epoch))
-    return path
 
 
 def latest_checkpoint_epoch(output_dir: str) -> Optional[int]:
@@ -73,8 +83,8 @@ def best_checkpoint_epoch(output_dir: str) -> Optional[int]:
 
 def load_checkpoint(output_dir: str, state: TrainState, epoch: Optional[int] = None):
     """Restore ``state`` in place from the checkpoint of ``epoch`` (default:
-    the latest; ref: utils.py:91-107), onto the devices its tensors lie on.
-    Returns (state, epoch, precision); (state, 0, 0.0) when there is none."""
+    the latest; ref: utils.py:91-107), onto the devices its tensors lie on;
+    across ranks every rank reads the same file. Returns (state, epoch, precision); (state, 0, 0.0) when there is none."""
     if epoch is None:
         epoch = latest_checkpoint_epoch(output_dir)
     if epoch is None:

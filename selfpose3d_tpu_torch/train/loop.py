@@ -7,6 +7,14 @@ parameters. Loader workers build CPU batches (pinned for a CUDA model);
 the loop copies each to the device with ``non_blocking=True``. The stage
 gates and the host bucket dispatch read only host values: ``epoch`` and
 the host batch's ``num_person``.
+
+Across ranks (``parallel/mesh.py``, the counterpart of
+``selfpose3d_tpu/train/loop.py``'s mesh paths) the trainers take the model
+``train.step.distribute`` wraps; every rank reads its stripe of each
+epoch's order, the bucket dispatch agrees on the largest person count of
+all ranks, the logged metrics are the means over ranks, and validation
+gathers every rank's predictions before ``dataset.evaluate`` runs on the
+full set. Logging and the debug dumps are rank 0's.
 """
 
 from __future__ import annotations
@@ -22,7 +30,9 @@ import torch
 from selfpose3d_tpu_torch.config import Config
 from selfpose3d_tpu_torch.data.loader import PrefetchLoader, collate_branch
 from selfpose3d_tpu_torch.ops import slicewarp
+from selfpose3d_tpu_torch.parallel import mesh
 from selfpose3d_tpu_torch.train.step import (
+    inner_model,
     make_inference_step,
     make_ssv_debug_forward,
     make_ssv_train_step,
@@ -45,6 +55,18 @@ def _device(model) -> torch.device:
     return next(model.parameters()).device
 
 
+def _info(msg: str, *args) -> None:
+    """Log on rank 0 only."""
+    if mesh.rank() == 0:
+        logger.info(msg, *args)
+
+
+def _loader(num_samples: int, batch: int, make_batch, **kw) -> PrefetchLoader:
+    """The loader of this rank's stripe (every rank the same order)."""
+    return PrefetchLoader(num_samples, mesh.local_batch_size(batch), make_batch,
+                          process_index=mesh.rank(), process_count=mesh.world(), **kw)
+
+
 def dispatch_buckets(cfg: Config, posenet_stage: bool) -> Tuple[int, ...]:
     """The PoseNet candidate caps of the host bucket dispatch
     (TRAIN.BUCKET_DISPATCH 'meta' in the PoseNet stage): the
@@ -59,20 +81,22 @@ def dispatch_buckets(cfg: Config, posenet_stage: bool) -> Tuple[int, ...]:
 
 def pick_k_cap(buckets: Tuple[int, ...], num_person: torch.Tensor, K_max: int) -> Optional[int]:
     """The smallest bucket holding the batch's largest person count plus
-    one, from the host tensor ``num_person``; None for no cap."""
+    one, from the host tensor ``num_person``; None for no cap. Every rank
+    decides on the largest count of all ranks, so all run one cap
+    (``selfpose3d_tpu/train/loop.py:77-86``)."""
     if not buckets:
         return None
-    need = min(int(num_person.max()) + 1, K_max)
+    need = mesh.agree_max(min(int(num_person.max()) + 1, K_max))
     k = next(b for b in buckets if b >= need)
     return None if k == K_max else k
 
 
 class _Profile:
     """``SP3D_PROFILE=dir``: a ``torch.profiler`` trace of steps [2, 2 +
-    SP3D_PROFILE_STEPS) of epoch 0, written to ``dir/trace.json``."""
+    SP3D_PROFILE_STEPS) of epoch 0, written to ``dir/trace.json`` (rank 0's)."""
 
     def __init__(self, epoch: int, dev: torch.device):
-        self.dir = os.environ.get("SP3D_PROFILE", "") if epoch == 0 else ""
+        self.dir = os.environ.get("SP3D_PROFILE", "") if epoch == 0 and mesh.rank() == 0 else ""
         self.steps = max(1, int(os.environ.get("SP3D_PROFILE_STEPS", "3")))
         self.dev = dev
         self.prof = None
@@ -120,12 +144,12 @@ def _run_epoch(cfg: Config, state: TrainState, loader: PrefetchLoader, epoch: in
         steps += 1
         if i % cfg.PRINT_FREQ == 0:
             names = list(metrics)
-            values = torch.stack([metrics[k].float() for k in names]).tolist()
+            values = mesh.mean_over_ranks(torch.stack([metrics[k].float() for k in names])).tolist()
             batch_time.update(time.time() - end)
             for k, v in zip(names, values):
                 meters.setdefault(k, AverageMeter()).update(v)
             speed = cfg.TRAIN.BATCH_SIZE / max(batch_time.val, 1e-9)
-            logger.info(
+            _info(
                 f"Epoch: [{epoch}][{i}/{len(loader)}] "
                 f"Time: {batch_time.val:.3f}s ({batch_time.avg:.3f}s) "
                 f"Speed: {speed:.1f} samples/s "
@@ -159,7 +183,8 @@ def train_epoch_ssv(
     meters_out: Optional[dict] = None,
 ) -> TrainState:
     """One SSV training epoch (ref: function.py:27-217), in place on
-    ``state``. The synthetic-root draws come from a CPU ``torch.Generator``
+    ``state``; ``model`` is the SSV model or its ``distribute`` wrapper.
+    The synthetic-root draws come from a CPU ``torch.Generator``
     seeded with ``epoch``. ``meters_out`` receives
     the epoch's meters (data_time, batch_time, each metric), its steps, wall
     seconds and sampler launches. With ``cfg.DEBUG.DEBUG`` and an
@@ -183,8 +208,8 @@ def train_epoch_ssv(
         frames = [dataset.get_ssv_frame(i, seed=epoch, load_images=load_images) for i in idxs]
         return tuple(collate_branch([f[k] for f in frames], pin_memory=pin) for k in range(3))
 
-    debug_fwd = (make_ssv_debug_forward(model, posenet_stage, l1_stage)
-                 if cfg.DEBUG.DEBUG and output_dir else None)
+    debug_fwd = (make_ssv_debug_forward(inner_model(model), posenet_stage, l1_stage)
+                 if cfg.DEBUG.DEBUG and output_dir and mesh.rank() == 0 else None)
     debug = {"debug_dumps": 0, "debug_seconds": 0.0,
              "debug_launches": dict.fromkeys(slicewarp.LAUNCHES, 0)}
 
@@ -206,10 +231,8 @@ def train_epoch_ssv(
                 debug["debug_launches"][k] += n
         return metrics
 
-    loader = PrefetchLoader(
-        len(dataset), cfg.TRAIN.BATCH_SIZE, make_batch,
-        shuffle=cfg.TRAIN.SHUFFLE, num_workers=cfg.WORKERS, seed=epoch, drop_last=True,
-    )
+    loader = _loader(len(dataset), cfg.TRAIN.BATCH_SIZE, make_batch, shuffle=cfg.TRAIN.SHUFFLE,
+                     num_workers=cfg.WORKERS, seed=epoch, drop_last=True)
     state = _run_epoch(cfg, state, loader, epoch, run_step, writer, meters_out)
     if meters_out is not None and debug_fwd is not None:
         meters_out.update(debug)
@@ -227,7 +250,8 @@ def train_epoch_supervised(
     meters_out: Optional[dict] = None,
 ) -> TrainState:
     """One supervised (VoxelPose baseline) epoch (ref: function.py:219-350),
-    in place on ``state``; frames drawn with seed ``epoch``."""
+    in place on ``state``; frames drawn with seed ``epoch``. ``model`` is
+    the model or its ``distribute`` wrapper."""
     dev = _device(model)
     step_fn = make_supervised_train_step(model)
     pin = dev.type == "cuda"
@@ -239,10 +263,8 @@ def train_epoch_supervised(
     def run_step(i, branch):
         return step_fn(state, branch.to(dev, non_blocking=True))
 
-    loader = PrefetchLoader(
-        len(dataset), cfg.TRAIN.BATCH_SIZE, make_batch,
-        shuffle=cfg.TRAIN.SHUFFLE, num_workers=cfg.WORKERS, seed=epoch, drop_last=True,
-    )
+    loader = _loader(len(dataset), cfg.TRAIN.BATCH_SIZE, make_batch, shuffle=cfg.TRAIN.SHUFFLE,
+                     num_workers=cfg.WORKERS, seed=epoch, drop_last=True)
     return _run_epoch(cfg, state, loader, epoch, run_step, writer, meters_out)
 
 
@@ -254,16 +276,21 @@ def validate_3d(
     load_images: bool = True,
     metrics_out: Optional[dict] = None,
 ) -> Optional[float]:
-    """Validation pass + ``dataset.evaluate`` (ref: function.py:352-490), one
-    process. The model runs in eval mode without autograd, and every
-    module's mode is restored afterwards; the last batch is padded to the
-    full TEST.BATCH_SIZE and trimmed; predictions are sorted by frame
-    index. ``metrics_out`` receives the whole report and the sampler
-    kernels' launches of the pass (``launches``).
+    """Validation pass + ``dataset.evaluate`` (ref: function.py:352-490).
+    The model (or the one inside a ``distribute`` wrapper) runs in eval
+    mode without autograd, and every module's mode is restored afterwards;
+    the last batch is padded to the full TEST.BATCH_SIZE and trimmed;
+    predictions are sorted by frame index. Across ranks each rank infers
+    its stripe of the frames, pads its rows to the longest stripe's count
+    (an empty stripe when there are fewer frames than ranks), and every
+    rank gathers all of them (``selfpose3d_tpu/train/loop.py:262-310``).
+    ``metrics_out`` receives the whole report and the sampler kernels'
+    launches of this rank's pass (``launches``).
 
     Returns the model-selection metric: the mean AP over the thresholds
     (the PCP under the Shelf/Campus protocol), or None.
     """
+    model = inner_model(model)
     dev = _device(model)
     batch = cfg.TEST.BATCH_SIZE
     pin = dev.type == "cuda"
@@ -279,8 +306,7 @@ def validate_3d(
             views.append(views[-1])
         return collate_branch(views, pin_memory=pin), list(idxs)
 
-    loader = PrefetchLoader(len(dataset), batch, make_batch, shuffle=False,
-                            num_workers=cfg.WORKERS)
+    loader = _loader(len(dataset), batch, make_batch, shuffle=False, num_workers=cfg.WORKERS)
     modes = {m: m.training for m in model.modules()}
     launched = dict(slicewarp.LAUNCHES)
     idx_list, pred_list, root_list = [], [], []
@@ -297,15 +323,28 @@ def validate_3d(
         for m, training in modes.items():
             m.train(training)
 
-    order = np.argsort(np.asarray(idx_list, np.int64), kind="stable")
+    idx = np.asarray(idx_list, np.int64)
     preds = np.concatenate(pred_list) if pred_list else np.zeros((0,))
     roots = np.concatenate(root_list) if root_list else np.zeros((0,))
+    if mesh.world() > 1:
+        # fixed-shape rows for the gather; padding rows carry index -1
+        K, J = cfg.MULTI_PERSON.MAX_PEOPLE_NUM, cfg.NETWORK.NUM_JOINTS
+        if not pred_list:
+            preds, roots = np.zeros((0, K, J, 5), np.float32), np.zeros((0, K, 5), np.float32)
+        pad = -(-len(dataset) // mesh.world()) - len(idx)
+        idx = np.concatenate([idx, np.full(pad, -1, np.int64)])
+        preds = np.concatenate([preds, np.zeros((pad,) + preds.shape[1:], preds.dtype)])
+        roots = np.concatenate([roots, np.zeros((pad,) + roots.shape[1:], roots.dtype)])
+        idx, preds, roots = mesh.process_allgather_tree((idx, preds, roots))
+        keep = idx >= 0
+        idx, preds, roots = idx[keep], preds[keep], roots[keep]
+    order = np.argsort(idx, kind="stable")
     metrics = dataset.evaluate([preds[i] for i in order], [roots[i] for i in order], output_dir)
     if metrics_out is not None:
         metrics_out.update(metrics, launches=_launches_since(launched))
     if metrics.get("aps") is None:
         if "avg_pcp" in metrics:  # Shelf/Campus PCP protocol (ref: :477-487)
-            logger.info(
+            _info(
                 "actor PCP: %s | avg PCP: %.4f | recall@500: %.4f",
                 np.round(metrics["actor_pcp"], 4).tolist(),
                 metrics["avg_pcp"], metrics["recall500"],
@@ -322,5 +361,5 @@ def validate_3d(
             " || root AP@25..150: " + " ".join(f"{a*100:.2f}" for a in metrics["aps_root"])
             + f" | root MPJPE: {metrics['mpjpe_root']:.2f}mm"
         )
-    logger.info(msg)
+    _info(msg)
     return float(np.mean(metrics["aps"]))

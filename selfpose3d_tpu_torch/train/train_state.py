@@ -4,7 +4,8 @@ Parameters are float32 whatever the compute dtype (the convolutions cast
 at use, ``models/norm.py``), so the optimizer updates float32 values.
 Frozen sub-networks (ref: tools/train_3d.py:48-75) get
 ``requires_grad=False``, no update and no optimizer state, mirroring
-``filter(lambda p: p.requires_grad, ...)``. Adam is ``m / (sqrt(v) + eps)``
+``filter(lambda p: p.requires_grad, ...)``; every trainable parameter is
+stepped every step. Adam is ``m / (sqrt(v) + eps)``
 with eps 1e-8 and SGD is momentum without dampening: the update rules of
 the JAX package's optax transforms.
 """
@@ -30,7 +31,16 @@ class TrainState:
 
     def apply_gradients(self) -> None:
         """One optimizer update from the gradients in ``.grad``, then the
-        schedule moves on and the gradients are dropped."""
+        schedule moves on and the gradients are dropped. A trainable
+        parameter without a gradient (its sub-network sat the step out) is
+        stepped on a zero gradient, as optax steps every leaf labelled
+        'train' (``selfpose3d_tpu/train/train_state.py:65-73``): Adam's
+        moments decay and its step count, which bias-corrects the next
+        update, moves on."""
+        for group in self.optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         self.optimizer.step()
         self.scheduler.step()
         self.optimizer.zero_grad(set_to_none=True)

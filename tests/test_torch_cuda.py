@@ -763,3 +763,30 @@ def test_realdata_epoch_and_validation_on_card(cuda, tmp_path, monkeypatch):
     assert got["evaluate"] == chip_smoke.sampler_counts(2 * V, 2, 0), got
     assert all(np.isfinite(m.avg) for k, m in rep["epoch"].items() if k.startswith("loss"))
     assert rep["dump_frames"] == 1 and len(rep["debug_files"]) == 9
+
+
+@pytest.mark.parametrize("bn_eval", [False, True])
+def test_ddp_world_size_1_step_equals_the_plain_step(cuda, tmp_path, bn_eval):
+    """One SSV step of chip_smoke.small_train_cfg (float32) through DDP over
+    nccl at world size 1 against the plain step on the card, both BatchNorm
+    modes, held to parallel.check.BARS: the same work, but the adjoint
+    kernel's atomic adds sum in any order, so two runs are not bit-equal."""
+    import torch.distributed as dist
+
+    import chip_smoke
+    from selfpose3d_tpu_torch.parallel import check
+
+    cfg = chip_smoke.small_train_cfg()
+    branches = chip_smoke.train_branches(cfg, 1, seed=0, device="cpu")
+    kw = dict(device="cuda", bn_eval=bn_eval, epoch=cfg.TRAIN.L1_EPOCH)
+    plain = check.train_step_record(cfg, branches, **kw)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        ddp = check.train_step_record(cfg, branches, **kw)
+    finally:
+        dist.destroy_process_group()
+    assert ddp["launches"] == plain["launches"] == chip_smoke.ssv_step_launches(cfg)
+    bad = {k: v for k, v in check.failures(check.compare(ddp, plain), bn_eval).items() if v}
+    assert not bad, bad
