@@ -6,9 +6,21 @@
 Phases, each printing one JSON line:
   1. card     nvidia-smi name and power limit, the highest SM clock (the
               shared-memory load rate of the bounds), torch/CUDA versions,
-              and the build of every CUDA kernel from csrc/ (one nvcc per source,
-              all started together), with the registers, static shared
-              memory and spills of the redesigned kernels (REDESIGNED);
+              and the build of every CUDA kernel from csrc/ (one nvcc per source)
+              and of the host JPEG codec (csrc/image_codec.cpp, the host C++
+              compiler), all started together, with the registers, static
+              shared memory and spills of the redesigned kernels
+              (REDESIGNED) and the codec's build seconds;
+  1b. codec   the port's JPEG codec on a machine without OpenCV: the
+              committed fixtures (tests/torch_fixtures/jpeg/: each chroma
+              sampling, grey, a restart interval, optimised tables) decode
+              to OpenCV's decodes beside them, and encode_jpeg of the
+              committed source writes cv2.imencode's bytes; the host ms
+              (median of 20) of a decode of one 1920x1080 4:2:0 q95 JPEG of
+              a rendered mini_panoptic view and of a noise frame, the ms of
+              one encode of a debug grid (the views_pred dump's 2880x1024),
+              and 12 decodes on 6 threads against one (the GIL is released
+              in the codec);
   2. main     flagship do_inference (ResNet-50, 5 x 960x512 views, 80x80x20
               root grid, 64^3 pose cubes, bf16, batch 8, random weights from
               a seed) on the synthetic scene: shapes, finite outputs, and
@@ -67,8 +79,8 @@ Phases, each printing one JSON line:
               tree in the panoptic-toolbox layout under build/ (the 13 sequences of
               the train and validation lists, one frame each of 2-3
               people, calibration and hdPose3d_stage1_coco19 JSON, 5 HD
-              views rendered at 1920x1080 and stored as PNG at the .jpg
-              paths), the pseudo labels of stages s1-s8 with a fake
+              views rendered at 1920x1080 and stored as JPEG at quality 95
+              by the port's encoder), the pseudo labels of stages s1-s8 with a fake
               detector and pose model (projected GT plus seeded noise),
               one epoch of cli/train_3d on cam5_posenet.yaml as it loads
               through panoptic_ssv (9 frames: decode, warp, RandAugment
@@ -80,7 +92,7 @@ Phases, each printing one JSON line:
               reference .pth.tar, track_sequence over its dump: launches a
               train step, a debug dump and a validation batch (as the loops
               record them, with every count set to 0 before the train CLI)
-              and of evaluate held as derived, every debug PNG non-blank, the metrics
+              and of evaluate held as derived, every debug JPEG non-blank, the metrics
               finite; steps/s, data-wait share, the host ms of one SSV
               frame from disk and peak memory beside the card's line;
  11. ddp      data parallelism (parallel/mesh.py): (a) cam5_posenet.yaml as
@@ -178,7 +190,7 @@ from selfpose3d_tpu_torch.microbench import primitives as mb_prim  # noqa: E402
 from selfpose3d_tpu_torch.microbench import sw_variants as mb_sw  # noqa: E402
 from selfpose3d_tpu_torch.microbench.common import (  # noqa: E402
     card_line, cuda_ms, sm_clock_max_mhz)
-from selfpose3d_tpu_torch.mini_panoptic import image_inked, run_realdata  # noqa: E402
+from selfpose3d_tpu_torch.mini_panoptic import image_inked, render_view, run_realdata  # noqa: E402
 from selfpose3d_tpu_torch.ops import build, slicewarp  # noqa: E402
 from selfpose3d_tpu_torch.ops.unproject import compute_sample_grid, to_pixels  # noqa: E402
 from selfpose3d_tpu_torch.parallel import check as ddp_check  # noqa: E402
@@ -187,6 +199,7 @@ from selfpose3d_tpu_torch.train import distribute  # noqa: E402
 from selfpose3d_tpu_torch.train import checkpoint  # noqa: E402
 from selfpose3d_tpu_torch.train.convergence import report, run_convergence  # noqa: E402
 from selfpose3d_tpu_torch.train.loop import train_epoch_ssv, validate_3d  # noqa: E402
+from selfpose3d_tpu_torch.utils import image_io, jpeg  # noqa: E402
 
 # H100 SXM published peaks (HBM3 bandwidth, dense FP32 rate); shared
 # memory serves 32 four-byte loads a clock on each of the 132 SMs, at the
@@ -337,19 +350,82 @@ def phase_card():
     print(smi, flush=True)
     SM_CLOCK_HZ = sm_clock_max_mhz() * 1e6
     t0 = time.perf_counter()
-    built = build.build()
+    built = build.build(build.SOURCES + build.HOST_SOURCES)
     for name in built:
         build.library(name)
     ptxas = [ln.strip() for info in built.values() for ln in info["log"].splitlines()
              if "registers" in ln or "spill" in ln]
+    host = {k: round(built[k]["seconds"], 3) for k in build.HOST_SOURCES}
+    print(f"card: host codec built in {host} s by {build.cxx()} ({smi})", flush=True)
     emit({"phase": "card", "nvidia_smi": smi, "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "sm_clock_max_mhz": SM_CLOCK_HZ / 1e6,
           "build_s": round(time.perf_counter() - t0, 3),
-          "nvcc_s": {k: round(v["seconds"], 3) for k, v in built.items()},
+          "nvcc_s": {k: round(v["seconds"], 3) for k, v in built.items() if k in build.SOURCES},
+          "host_cxx_s": host, "host_cxx": build.cxx(),
           "ptxas": ptxas,
           "ptxas_redesigned": {fn: fig for info in built.values()
                                for fn, fig in ptxas_figures(info["log"]).items()}})
+
+
+JPEG_FIXTURES = os.path.join(ROOT, "tests", "torch_fixtures", "jpeg")
+
+
+def _median_ms(fn, n):
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def phase_codec():
+    """The port's JPEG codec, held to OpenCV's committed output and timed on
+    the host (no OpenCV here)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    smi = card_line()
+    with open(os.path.join(JPEG_FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+
+    def read(name):
+        with open(os.path.join(JPEG_FIXTURES, name), "rb") as f:
+            return f.read()
+
+    for case in manifest["decode"]:
+        got = jpeg.decode_jpeg(read(case["jpeg"]), case["mode"])
+        want = image_io.decode(read(case["want"]), color=case["mode"] == "color")
+        assert got is not None and got.shape == want.shape and (got == want).all(), case
+    for case in manifest["encode"]:
+        src = image_io.decode(read(case["source"]))
+        assert jpeg.encode_jpeg(src, case["quality"]) == read(case["want"]), case
+    view = render_view((1920, 1080), seed=0)
+    noise = np.random.RandomState(0).randint(0, 256, (1080, 1920, 3), np.uint8)
+    grid = np.concatenate([np.concatenate([view[:512, :960]] * 3, 1)] * 2, 0)  # 2880x1024
+    files = {"rendered view": jpeg.encode_jpeg(view), "noise frame": jpeg.encode_jpeg(noise)}
+    for data in files.values():
+        assert jpeg.decode_jpeg(data).shape == (1080, 1920, 3)
+    # the round trip of the (noisy) render: cv2.imwrite and imread give 4.31
+    # levels mean on this view, and the codec writes cv2's bytes
+    assert np.abs(jpeg.decode_jpeg(files["rendered view"]).astype(int) - view).mean() < 6
+    rep = {"fixtures": len(manifest["decode"]) + len(manifest["encode"]),
+           "opencv_of_fixtures": manifest["opencv"], "card": smi,
+           "jpeg_bytes": {k: len(v) for k, v in files.items()}}
+    for name, data in files.items():
+        rep[f"decode ms, 1920x1080 4:2:0 q95 {name} (median of 20)"] = _median_ms(
+            lambda: jpeg.decode_jpeg(data), 20)
+    rep["encode ms, 2880x1024 debug grid q95 (median of 5)"] = _median_ms(
+        lambda: jpeg.encode_jpeg(grid), 5)
+    data = files["rendered view"]
+    one = _median_ms(lambda: [jpeg.decode_jpeg(data) for _ in range(12)], 3)
+    with ThreadPoolExecutor(6) as pool:
+        six = _median_ms(lambda: list(pool.map(jpeg.decode_jpeg, [data] * 12)), 3)
+    rep["12 decodes of the rendered view, ms: one thread, six threads"] = [one, six]
+    for k, v in rep.items():
+        if "ms" in k:
+            print(f"codec: {k} {v} ({smi})", flush=True)
+    emit(json_finite({"phase": "codec", **rep}))
 
 
 def phase_main():
@@ -1054,17 +1130,17 @@ def phase_realdata():
     assert rep["evaluate"]["precision"] is not None and math.isfinite(rep["evaluate"]["precision"])
     assert rep["dump_frames"] == len(rep["tracks"]) > 0
     stems = [f"train_0_{i}" for i in range(0, steps, cfg.PRINT_FREQ)]
-    want = [f"{s}_{k}.png" for s in stems for k in ("gt", "hm_pred", "views_pred")]
+    want = [f"{s}_{k}.jpg" for s in stems for k in ("gt", "hm_pred", "views_pred")]
     assert rep["debug_files"] == sorted(want), (rep["debug_files"], want)
     blank = [f for f in want if not image_inked(os.path.join(rep["debug_dir"], f))]
     assert not blank, blank
     print("realdata: DEBUG.SAVE_3D_POSES and SAVE_3D_ROOTS stay off: the 3D plots need "
-          "matplotlib, which this machine may lack; the 2D dumps are PNG", flush=True)
+          "matplotlib, which this machine may lack; the 2D dumps are JPEG", flush=True)
     for name, value in (("steps/s", meters["steps"] / meters["seconds"]),
                         ("data-wait share", meters["data_time"].sum / meters["seconds"]),
                         ("host ms to build one SSV frame from disk (15 images)",
                          sorted(rep["ssv_frame_from_disk_ms"])[1]),
-                        ("debug dumps' share of the epoch (forward and PNG writing)",
+                        ("debug dumps' share of the epoch (forward and JPEG writing)",
                          rep["debug_dump_seconds"] / meters["seconds"]),
                         ("peak memory GiB", rep["peak_mem_gib"])):
         print(f"realdata: {name} {value} ({smi})", flush=True)
@@ -2179,6 +2255,7 @@ def main() -> int:
         return 2
     t0 = time.perf_counter()
     phase_card()
+    phase_codec()
     model, launches_main, br, gc = phase_main()
     phase_geometry(model)
     phase_parity()

@@ -20,7 +20,8 @@ to find, and it imports nothing of JAX or of ``selfpose3d_tpu``:
               the SSV debug forward; the train and validation loops,
               checkpoints, the convergence harness
   eval/       the Panoptic AP/MPJPE and Shelf/Campus PCP protocols, tracking
-  utils/      image decoding, PNG writing and the affine warp (no OpenCV),
+  utils/      image decoding and writing (JPEG through the port's codec, PNG,
+              PPM) and the affine warp (no OpenCV),
               zip URIs, flips, debug dumps, meters, logging
   pseudo_labels/  the pseudo-label pipeline (s1-s8) with pluggable models
   parallel/   data parallelism over processes (torch.distributed, DDP):
@@ -30,7 +31,8 @@ to find, and it imports nothing of JAX or of ``selfpose3d_tpu``:
   convert/    JAX parameter (or gradient) trees -> this package's state dicts
   microbench/ the measurement probes (3D conv, slice-warp variants,
               primitive rates), each with its CUDA kernel
-  csrc/       CUDA C++ sources, built with nvcc at first use
+  csrc/       CUDA C++ sources, built with nvcc at first use, and the host
+              C++ JPEG codec and PNG unfilter, built with the host compiler
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

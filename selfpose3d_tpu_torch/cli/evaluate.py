@@ -9,7 +9,7 @@ output directory (``--epoch``; default the best, else the latest) on the
 config's test dataset, on the card unless ``--device cpu``; writes the
 metrics to the log and ``predictions_dump.pkl`` beside it.
 ``--vis-attn`` also writes the attention maps of the first four test
-frames to ``attn_vis.png``; ``--dry-assets`` only checks that the dataset
+frames to ``attn_vis.jpg``; ``--dry-assets`` only checks that the dataset
 and the checkpoint load, without running the model.
 """
 
@@ -45,7 +45,7 @@ def parse_args(argv=None):
                    help="accepted as the reference's command line has it; the model "
                         "is the config's MODEL")
     p.add_argument("--vis-attn", action="store_true",
-                   help="write the attention maps of the first test frames to attn_vis.png")
+                   help="write the attention maps of the first test frames to attn_vis.jpg")
     p.add_argument("--dry-assets", action="store_true",
                    help="only check that the test dataset and --test-file load: its "
                         "first image decodes and the checkpoint covers the model with "
@@ -116,7 +116,7 @@ def save_attention(model, ds, output_dir: str, load_images: bool) -> str:
         for m, training in modes.items():
             m.train(training)
     a = attns.float().cpu().numpy()
-    path = f"{output_dir}/attn_vis.png"
+    path = f"{output_dir}/attn_vis.jpg"
     save_batch_heatmaps(None, a.reshape(-1, *a.shape[2:])[:4], path)
     return path
 

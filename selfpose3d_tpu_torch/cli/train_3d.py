@@ -8,8 +8,8 @@ under ``OUTPUT_DIR/<dataset>/<model>/<cfg name>/checkpoints`` with the
 best epoch's number in ``best_epoch.txt``. TRAIN.RESUME continues from
 the latest checkpoint there. ``--set SECTION.KEY=VALUE`` overrides one
 config entry (a YAML value), e.g. ``--set TRAIN.END_EPOCH=30``. With
-DEBUG.DEBUG the SSV epochs write their debug dumps (PNG; the 3D plots of
-DEBUG.SAVE_3D_POSES / SAVE_3D_ROOTS need matplotlib) under
+DEBUG.DEBUG the SSV epochs write their debug dumps (``.jpg``; the ``.png``
+3D plots of DEBUG.SAVE_3D_POSES / SAVE_3D_ROOTS need matplotlib) under
 ``<output dir>/debug``.
 
 ``--distributed`` trains data-parallel, one process a GPU, each at

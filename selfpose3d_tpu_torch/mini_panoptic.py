@@ -6,11 +6,12 @@ repository.
 
 ``write_panoptic_tree`` writes the tree (calibration and
 ``hdPose3d_stage1_coco19`` JSON, views rendered by the port's rasteriser
-and stored as PNG at the ``.jpg`` paths, which the reader decodes by
-content); ``build_pseudo_labels`` runs the pseudo-label stages over it
-with fake models; ``run_realdata`` trains one epoch through the train
-CLI with the debug dumps, validates, evaluates a reference-layout
-checkpoint through the evaluate CLI and tracks its predictions.
+and stored as JPEG at quality 95 by the port's encoder, the bytes
+``cv2.imwrite`` writes); ``build_pseudo_labels`` runs the pseudo-label
+stages over it with fake models; ``run_realdata`` trains one epoch
+through the train CLI with the debug dumps, validates, evaluates a
+reference-layout checkpoint through the evaluate CLI and tracks its
+predictions.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ from selfpose3d_tpu_torch.pseudo_labels import visualize as pseudo_vis
 from selfpose3d_tpu_torch.train import checkpoint
 from selfpose3d_tpu_torch.train.checkpoint import save_reference_checkpoint
 from selfpose3d_tpu_torch.train.train_state import create_train_state
-from selfpose3d_tpu_torch.utils.image_io import imwrite_png
+from selfpose3d_tpu_torch.utils.image_io import imwrite
 from selfpose3d_tpu_torch.utils.zipreader import imread_any
 
 # the COCO-17 joint of each Panoptic-15 joint that has one (eyes and ears
@@ -74,9 +75,9 @@ def write_panoptic_tree(data_dir, image_wh=(1920, 1080), seed=0):
     datasets skip) and one frame, ``hdPose3d_stage1_coco19/
     body3DScene_00000000.json`` with 2-3 people (joints19 in cm, axes as the
     toolbox stores them), whose five views are rendered with the port's
-    rasteriser and written as PNG at the ``hdImgs/<cam>/<cam>_00000000.jpg``
-    paths the DB records name (the reader decodes by content). Returns the
-    dataset root and the world poses (mm) by sequence."""
+    rasteriser and written as JPEG (``utils/jpeg.encode_jpeg``, quality 95)
+    at the ``hdImgs/<cam>/<cam>_00000000.jpg`` paths the DB records name.
+    Returns the dataset root and the world poses (mm) by sequence."""
     root = os.path.join(data_dir, "data", "panoptic-toolbox", "data")
     J = 15
     poses_by_seq = {}
@@ -105,19 +106,34 @@ def write_panoptic_tree(data_dir, image_wh=(1920, 1080), seed=0):
                        "bodies": bodies}, f)
         rs = np.random.RandomState(seed + 200 + s)
         for v, (panel, node) in enumerate(skeleton.PANOPTIC_CAM_LIST):
-            c = cams[v]
-            npcam = {"R": cam.R[0, v].numpy(), "T": cam.T[0, v].numpy(),
-                     "fx": c["K"][0][0], "fy": c["K"][1][1], "cx": c["K"][0][2],
-                     "cy": c["K"][1][2], "k": np.zeros((3, 1)), "p": np.zeros((2, 1))}
-            pix = [project_pose_np(poses[p], npcam).astype(np.float32) for p in range(n)]
-            vis = [np.ones((J, 2), np.float32) for _ in range(n)]
-            img = render_stick_figures(pix, vis, image_wh, rs, J)
             prefix = f"{panel:02d}_{node:02d}"
             img_dir = os.path.join(seq_dir, "hdImgs", prefix)
             os.makedirs(img_dir, exist_ok=True)
-            rgb = np.rint(img * 255).astype(np.uint8)
-            imwrite_png(os.path.join(img_dir, f"{prefix}_00000000.jpg"), rgb[..., ::-1])
+            imwrite(os.path.join(img_dir, f"{prefix}_00000000.jpg"),
+                    _render_view(cam, v, cams[v], poses, image_wh, rs))
     return root, poses_by_seq
+
+
+def _render_view(cam, v, cam_json, poses, image_wh, rs):
+    """View ``v`` of the world ``poses`` (P, J, 3) as BGR uint8, drawn by the
+    port's rasteriser with ``rs``'s draws."""
+    K = cam_json["K"]
+    npcam = {"R": cam.R[0, v].numpy(), "T": cam.T[0, v].numpy(), "fx": K[0][0], "fy": K[1][1],
+             "cx": K[0][2], "cy": K[1][2], "k": np.zeros((3, 1)), "p": np.zeros((2, 1))}
+    J = poses.shape[1]
+    pix = [project_pose_np(p, npcam).astype(np.float32) for p in poses]
+    vis = [np.ones((J, 2), np.float32) for _ in poses]
+    img = render_stick_figures(pix, vis, image_wh, rs, J)
+    return np.ascontiguousarray(np.rint(img * 255).astype(np.uint8)[..., ::-1])
+
+
+def render_view(image_wh=(1920, 1080), seed=0, people=3):
+    """One HD view as ``write_panoptic_tree`` renders them: ``people``
+    seeded stick figures in the first camera of a ring, BGR uint8."""
+    cam = ring_cameras(len(skeleton.PANOPTIC_CAM_LIST), image_wh=image_wh, seed=seed)
+    poses = random_poses(people, 15, seed=seed + 100, root_idx=2).astype(np.float64)
+    cam_json = panoptic_camera_json(cam, 0, skeleton.PANOPTIC_CAM_LIST[0][1], image_wh)
+    return _render_view(cam, 0, cam_json, poses, image_wh, np.random.RandomState(seed + 200))
 
 
 def coco_from_panoptic(j2d, vis):
@@ -210,7 +226,7 @@ def build_pseudo_labels(cfg, work_dir, seed=0):
 
 
 def image_inked(path):
-    """The PNG at ``path`` decodes and is not one colour."""
+    """The image (JPEG or PNG) at ``path`` decodes and is not one colour."""
     img = imread_any(path)
     return img is not None and int(img.max()) > int(img.min())
 

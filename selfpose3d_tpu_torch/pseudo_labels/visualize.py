@@ -10,8 +10,8 @@ same frames, completing the pipeline's visual QA loop.
 The port's copy of ``selfpose3d_tpu/pseudo_labels/visualize.py``: lines
 and circles are drawn anti-aliased by the port's rasteriser
 (``data/synthetic_dataset.py``) where the JAX package calls ``cv2.line``
-and ``cv2.circle`` with LINE_AA, and the overlays are written as PNG (the
-JAX package writes ``.jpg``; the stems are the same).
+and ``cv2.circle`` with LINE_AA; the overlays are written as ``.jpg`` by
+``utils/image_io.imwrite`` (the port's JPEG encoder).
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from selfpose3d_tpu_torch.data.synthetic_dataset import draw_capsule, draw_ring
-from selfpose3d_tpu_torch.utils.image_io import imwrite_png
+from selfpose3d_tpu_torch.utils.image_io import imwrite
 from selfpose3d_tpu_torch.utils.zipreader import imread_any
 
 # COCO-17 skeleton pairs (ref: s6_vis_pseudo_kpt2d.py:55-75)
@@ -150,8 +150,8 @@ def vis_pseudo_kpt2d(
                 img, kp, COCO_PAIRS,
                 _PERSON_COLORS[pi % len(_PERSON_COLORS)], vis_thresh=0.05,
             )
-        out = osp.join(out_dir, f"pseudo_{image_id}.png")
-        imwrite_png(out, img)
+        out = osp.join(out_dir, f"pseudo_{image_id}.jpg")
+        imwrite(out, img)
         written.append(out)
     return written
 
@@ -201,8 +201,8 @@ def vis_compare_pseudo_kpt2d(
         h = min(p.shape[0] for p in panels)
         panels = [p[:h] for p in panels]
         composite = np.concatenate(panels, axis=1)
-        out = osp.join(out_dir, f"compare_{key}.png")
-        imwrite_png(out, composite)
+        out = osp.join(out_dir, f"compare_{key}.jpg")
+        imwrite(out, composite)
         written.append(out)
     return written
 

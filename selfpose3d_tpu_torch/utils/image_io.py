@@ -1,38 +1,43 @@
-"""Image decoding, PNG encoding and the bilinear affine warp, in numpy and
-the standard library: what OpenCV does for the JAX package's data path
-(``cv2.imread``/``imdecode``, ``cv2.imwrite``, ``cv2.warpAffine``,
-``cv2.cvtColor``).
+"""Image decoding and encoding and the bilinear affine warp, in numpy, the
+standard library and the port's own codec (``csrc/image_codec.cpp``,
+built with the host C++ compiler at first use): what OpenCV does for the
+JAX package's data path (``cv2.imread``/``imdecode``, ``cv2.imwrite``,
+``cv2.warpAffine``, ``cv2.cvtColor``), with no OpenCV or Pillow.
 
 ``decode`` picks the decoder by the first bytes, as ``cv2.imread`` does,
 and returns the image in BGR order, as OpenCV does:
 
-  * PNG, 8 bits a sample, grey, grey + alpha, RGB or RGBA, not interlaced,
-    all five row filters (None, Sub and Up rows are unfiltered with numpy;
-    Average and Paeth rows, which depend on the pixel to their left, in a
-    Python loop over the row's bytes, far slower: the encoders of OpenCV
-    and Pillow choose Paeth for many rows of a photograph);
-  * binary PPM (P6) and PGM (P5) with a maximum value of 255;
-  * JPEG through OpenCV, else Pillow, where one of them is installed; else
-    an ``ImportError`` that says so.
+  * JPEG through ``utils/jpeg.py``: equal to ``cv2.imdecode`` bit for bit
+    (baseline and extended sequential Huffman, 8-bit, grey or three
+    components, any sampling, restart intervals, the EXIF orientation);
+    a mode it does not decode (progressive, lossless, arithmetic-coded,
+    12-bit, 4 components) raises ``ValueError``;
+  * PNG, 8 bits a sample, grey, grey + alpha, RGB or RGBA, not interlaced:
+    ``zlib`` inflates, the codec's ``sp3d_png_unfilter`` undoes the five row
+    filters;
+  * binary PPM (P6) and PGM (P5) with a maximum value of 255.
 
 Anything else, a truncated file or a failed PNG checksum gives None, as
 ``cv2.imread`` gives; a PNG of a kind this module does not decode raises.
-``encode_png`` writes 8-bit grey or RGB PNG rows with the Up filter;
-``warp_affine`` and ``resize`` are OpenCV's bilinear ``warpAffine`` and
-``resize`` within one level of 255.
+``imwrite`` writes by extension, as ``cv2.imwrite`` does: JPEG at quality
+95 (``cv2.imwrite``'s bytes) or PNG (8-bit grey or RGB rows with the Up
+filter); ``warp_affine`` and ``resize`` are OpenCV's bilinear
+``warpAffine`` and ``resize`` within one level of 255.
 """
 
 from __future__ import annotations
 
-import io
+import os
 import struct
 import zlib
 from typing import Optional, Tuple
 
 import numpy as np
 
+from selfpose3d_tpu_torch.utils import jpeg
+
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-JPEG_SIGNATURE = b"\xff\xd8\xff"
+JPEG_SIGNATURE = jpeg.SIGNATURE
 # PNG colour type -> samples a pixel (grey, RGB, grey + alpha, RGBA)
 _PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 
@@ -42,12 +47,12 @@ def decode(data: bytes, color: bool = True) -> Optional[np.ndarray]:
     module reads. ``color``: (H, W, 3) BGR, grey replicated and alpha
     dropped (``cv2.IMREAD_COLOR``); else as stored, alpha dropped: (H, W)
     grey or (H, W, 3) BGR."""
+    if data.startswith(JPEG_SIGNATURE):
+        return jpeg.decode_jpeg(data, "color" if color else "unchanged")
     if data.startswith(PNG_SIGNATURE):
         img = _decode_png(data)
     elif data[:2] in (b"P5", b"P6"):
         img = _decode_pnm(data)
-    elif data.startswith(JPEG_SIGNATURE):
-        img = _decode_jpeg(data)
     else:
         return None
     if img is None:
@@ -55,23 +60,6 @@ def decode(data: bytes, color: bool = True) -> Optional[np.ndarray]:
     if img.ndim == 2:
         return np.repeat(img[..., None], 3, axis=2) if color else img
     return np.ascontiguousarray(img[..., 2::-1])  # RGB(A) -> BGR
-
-
-def _paeth_row(raw: bytearray, prev: bytes, bpp: int) -> None:
-    for i in range(len(raw)):
-        a = raw[i - bpp] if i >= bpp else 0
-        b = prev[i]
-        c = prev[i - bpp] if i >= bpp else 0
-        p = a + b - c
-        pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-        pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
-        raw[i] = (raw[i] + pred) & 0xFF
-
-
-def _average_row(raw: bytearray, prev: bytes, bpp: int) -> None:
-    for i in range(len(raw)):
-        a = raw[i - bpp] if i >= bpp else 0
-        raw[i] = (raw[i] + ((a + prev[i]) >> 1)) & 0xFF
 
 
 def _decode_png(data: bytes) -> Optional[np.ndarray]:
@@ -106,28 +94,25 @@ def _decode_png(data: bytes) -> Optional[np.ndarray]:
     stride = w * bpp
     if len(raw) < h * (stride + 1):
         return None
-    rows = np.frombuffer(raw, np.uint8, h * (stride + 1)).reshape(h, stride + 1)
     out = np.empty((h, stride), np.uint8)
-    prev = np.zeros(stride, np.uint8)
-    for y in range(h):
-        kind, line = rows[y, 0], rows[y, 1:]
-        if kind == 0:
-            out[y] = line
-        elif kind == 1:
-            out[y] = np.cumsum(line.reshape(w, bpp), axis=0, dtype=np.uint8).reshape(-1)
-        elif kind == 2:
-            out[y] = line + prev
-        elif kind in (3, 4):
-            buf = bytearray(line.tobytes())
-            (_average_row if kind == 3 else _paeth_row)(buf, prev.tobytes(), bpp)
-            out[y] = np.frombuffer(bytes(buf), np.uint8)
-        else:
-            return None
-        prev = out[y]
+    if png_unfilter(raw, h, stride, bpp, out):
+        return None  # a filter type the PNG spec does not define
     img = out.reshape(h, w, bpp)
     if bpp in (1, 2):
         return img[..., 0]
     return img[..., :3]
+
+
+def png_unfilter(raw: bytes, h: int, stride: int, bpp: int, out: np.ndarray) -> int:
+    """Undo the row filters of ``h`` rows of ``1 + stride`` bytes in ``raw``
+    (``bpp`` bytes a pixel) into ``out`` ((h, stride) uint8, C order);
+    0, or the codec's code for an unknown filter type."""
+    if out.shape != (h, stride) or out.dtype != np.uint8 or not out.flags.c_contiguous:
+        raise ValueError(f"png_unfilter writes a C-ordered ({h}, {stride}) uint8 array, "
+                         f"got {out.dtype} {out.shape}")
+    if len(raw) < h * (stride + 1):
+        raise ValueError(f"png_unfilter: {len(raw)} bytes for {h} rows of {stride + 1}")
+    return jpeg.codec().sp3d_png_unfilter(raw, h, stride, bpp, out.ctypes.data)
 
 
 def _decode_pnm(data: bytes) -> Optional[np.ndarray]:
@@ -159,28 +144,6 @@ def _decode_pnm(data: bytes) -> Optional[np.ndarray]:
     return img[..., 0] if c == 1 else img
 
 
-def _decode_jpeg(data: bytes) -> Optional[np.ndarray]:
-    """JPEG through OpenCV, else Pillow; returns RGB (or grey)."""
-    try:
-        import cv2
-    except ImportError:
-        cv2 = None
-    if cv2 is not None:
-        bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
-        return None if bgr is None else bgr[..., ::-1]
-    try:
-        from PIL import Image, UnidentifiedImageError
-    except ImportError:
-        raise ImportError(
-            "decoding JPEG needs OpenCV (cv2) or Pillow, and neither is installed; "
-            "store the images as PNG or PPM, which this module decodes itself") from None
-    try:
-        with Image.open(io.BytesIO(data)) as im:
-            return np.asarray(im.convert("RGB"))
-    except (UnidentifiedImageError, OSError):
-        return None
-
-
 def encode_png(img: np.ndarray) -> bytes:
     """An 8-bit PNG of ``img`` ((H, W) grey or (H, W, 3) in RGB order),
     every row with the Up filter."""
@@ -203,11 +166,19 @@ def encode_png(img: np.ndarray) -> bytes:
             + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b""))
 
 
-def imwrite_png(path: str, img_bgr: np.ndarray) -> None:
-    """Write a BGR (or grey) uint8 image as PNG, as ``cv2.imwrite`` takes it."""
-    img = img_bgr if img_bgr.ndim == 2 else img_bgr[..., ::-1]
+def imwrite(path: str, img_bgr: np.ndarray) -> None:
+    """Write a BGR (or grey) uint8 image, as ``cv2.imwrite`` takes it, in
+    the format its extension names: ``.jpg``/``.jpeg`` JPEG at quality 95
+    (the bytes of ``cv2.imwrite``), ``.png`` PNG."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext in (".jpg", ".jpeg", ".jpe"):
+        data = jpeg.encode_jpeg(img_bgr, 95)
+    elif ext == ".png":
+        data = encode_png(img_bgr if img_bgr.ndim == 2 else img_bgr[..., ::-1])
+    else:
+        raise ValueError(f"imwrite writes .jpg, .jpeg, .jpe or .png, not {path!r}")
     with open(path, "wb") as f:
-        f.write(encode_png(img))
+        f.write(data)
 
 
 def bgr_to_rgb(img: np.ndarray) -> np.ndarray:

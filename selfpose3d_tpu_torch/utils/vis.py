@@ -7,9 +7,9 @@ Agg backend so headless training never touches a display.
 
 The port's copy of ``selfpose3d_tpu/utils/vis.py``: the 2D overlays are
 drawn by the port's rasteriser (``data/synthetic_dataset.py``) and
-written as PNG by ``utils/image_io`` where the JAX package draws and
-writes ``.jpg`` with OpenCV; the stems are the same. Predictions are
-projected with ``geometry/cameras.py`` on tensors.
+written as ``.jpg`` by ``utils/image_io.imwrite`` (the port's JPEG
+encoder) where the JAX package draws and writes with OpenCV. Predictions
+are projected with ``geometry/cameras.py`` on tensors.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ from selfpose3d_tpu_torch.data.skeleton import PANOPTIC_LIMBS
 from selfpose3d_tpu_torch.data.synthetic_dataset import draw_ring
 from selfpose3d_tpu_torch.geometry.cameras import CameraParams, project_points_with_trans
 from selfpose3d_tpu_torch.pseudo_labels.visualize import _PERSON_COLORS, draw_skeleton_2d
-from selfpose3d_tpu_torch.utils.image_io import imwrite_png, resize
+from selfpose3d_tpu_torch.utils.image_io import imwrite, resize
 
 def _np(x) -> np.ndarray:
     """A tensor (any device, any float dtype) or array as a numpy array."""
@@ -77,7 +77,7 @@ def save_batch_image_with_joints(
         r, c = divmod(i, ncol)
         grid[r * H : (r + 1) * H, c * W : (c + 1) * W] = np.rint(np.clip(img, 0, 255))
     os.makedirs(os.path.dirname(file_name) or ".", exist_ok=True)
-    imwrite_png(file_name, grid[..., ::-1])
+    imwrite(file_name, grid[..., ::-1])
 
 
 def save_batch_heatmaps(
@@ -101,7 +101,7 @@ def save_batch_heatmaps(
             blend = (colored * 0.7 + img * 0.3).astype(np.uint8)
             grid[i * H : (i + 1) * H, (j + 1) * W : (j + 2) * W] = blend
     os.makedirs(os.path.dirname(file_name) or ".", exist_ok=True)
-    imwrite_png(file_name, grid)
+    imwrite(file_name, grid)
 
 
 def save_3d_poses(
@@ -172,12 +172,12 @@ def save_debug_images(
             joints = _np(branch.joints).reshape(B * V, *branch.joints.shape[2:])
             vis = _np(branch.joints_vis).reshape(joints.shape[:-1] + (2,))
             save_batch_image_with_joints(
-                flat, joints, vis, f"{prefix}_gt.png"
+                flat, joints, vis, f"{prefix}_gt.jpg"
             )
         if cfg.DEBUG.SAVE_HEATMAPS_PRED and heatmaps_pred is not None:
             hm = _np(heatmaps_pred)
             hm = hm.reshape(-1, *hm.shape[2:])
-            save_batch_heatmaps(None, hm[: min(4, len(hm))], f"{prefix}_hm_pred.png")
+            save_batch_heatmaps(None, hm[: min(4, len(hm))], f"{prefix}_hm_pred.jpg")
     if cfg.DEBUG.SAVE_3D_POSES and pred_3d is not None:
         pred_3d = _np(pred_3d)
         save_3d_poses(
@@ -192,7 +192,7 @@ def save_debug_images(
         and branch.views is not None
     ):
         save_multiview_composite(
-            cfg, branch, pred_3d, f"{prefix}_views_pred.png"
+            cfg, branch, pred_3d, f"{prefix}_views_pred.jpg"
         )
 
 
@@ -253,7 +253,7 @@ def save_multiview_composite(
         r, c = divmod(v, cols)
         grid[r * H : (r + 1) * H, c * W : (c + 1) * W] = p
     os.makedirs(os.path.dirname(file_name) or ".", exist_ok=True)
-    imwrite_png(file_name, grid)
+    imwrite(file_name, grid)
 
 
 def load_obj_mesh(path: str):

@@ -128,7 +128,7 @@ def test_debug_dumps_raise(tmp_path):
     train_epoch_ssv(cfg, model, create_train_state(cfg, model), _dataset(cfg, "train", 2),
                     epoch=0, output_dir=str(tmp_path))
     dumps = sorted(os.listdir(tmp_path / "debug"))
-    assert dumps == [f"train_0_0_{k}.png" for k in ("gt", "hm_pred", "views_pred")]
+    assert dumps == [f"train_0_0_{k}.jpg" for k in ("gt", "hm_pred", "views_pred")]
 
 
 # ------------------------------------------------------ checkpoint, resume

@@ -1,4 +1,5 @@
-"""The port's image reader, PNG writer, affine warp and RandAugment ops
+"""The port's image reader (PNG and PPM; its JPEG codec has
+``test_torch_jpeg.py``), PNG writer, affine warp and RandAugment ops
 (``utils/image_io``, ``utils/zipreader``, ``data/randaugment``) against
 OpenCV and Pillow, which the JAX package calls for them, and against the
 JAX package's RandAugment module.
@@ -14,7 +15,6 @@ augmented images are equal.
 
 import io
 import struct
-import sys
 import zipfile
 import zlib
 
@@ -130,7 +130,7 @@ def test_png_round_trip(tmp_path):
         if img.ndim == 3 and img.shape[2] != 3:
             continue
         path = str(tmp_path / f"{name}.png")
-        image_io.imwrite_png(path, img)  # BGR in, as cv2.imwrite
+        image_io.imwrite(path, img)  # BGR in, as cv2.imwrite; PNG by the extension
         want = cv2.imread(path, cv2.IMREAD_UNCHANGED)
         np.testing.assert_array_equal(want, img)
         np.testing.assert_array_equal(imread_any(path, color=img.ndim == 3), img)
@@ -164,19 +164,6 @@ def test_zip_uri_ppm_and_unreadable_inputs(tmp_path):
         assert imread_any(path) is None, path
         if "@" not in path:
             assert cv2.imread(path) is None, path
-
-
-def test_jpeg_through_opencv_else_pillow_else_error(tmp_path, monkeypatch):
-    img = cv2.GaussianBlur(_images()["noise"], (5, 5), 2)
-    path = str(tmp_path / "x.jpg")
-    cv2.imwrite(path, img)
-    np.testing.assert_array_equal(imread_any(path), cv2.imread(path))
-    monkeypatch.setitem(sys.modules, "cv2", None)
-    pil = imread_any(path)  # Pillow's libjpeg may round differently
-    assert pil.shape == img.shape and np.abs(pil.astype(int) - cv2.imread(path)).max() <= 8
-    monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(ImportError, match="JPEG"):
-        imread_any(path)
 
 
 def _panoptic(rot, scale, shift=(0.0, 0.0)):

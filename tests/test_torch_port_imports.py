@@ -1,6 +1,6 @@
-"""What the port imports: no module of JAX, Flax or the JAX package, and
-OpenCV, Pillow and matplotlib only where a function needs them (the JPEG
-branch of the image reader; the 3D plot writers).
+"""What the port imports: no module of JAX, Flax or the JAX package, no
+OpenCV or Pillow at all (the port decodes and writes images itself), and
+matplotlib only where a function needs it (the 3D plot writers).
 
 Checked twice: in a fresh interpreter that imports every module of the
 port (``sys.modules`` afterwards), and in the source of every module (the
@@ -18,9 +18,7 @@ PORT = os.path.dirname(selfpose3d_tpu_torch.__file__)
 REPO = os.path.dirname(PORT)
 NEVER = ("jax", "jaxlib", "flax", "selfpose3d_tpu")
 # top-level package -> the functions allowed to import it
-ONLY_IN = {"cv2": {"utils/image_io.py:_decode_jpeg"},
-           "PIL": {"utils/image_io.py:_decode_jpeg"},
-           "matplotlib": {"utils/vis.py:_plt"}}
+ONLY_IN = {"cv2": set(), "PIL": set(), "matplotlib": {"utils/vis.py:_plt"}}
 # optional model backends of the pseudo-label stages s2/s4 (as in the JAX package)
 BACKENDS = {"detectron2", "mmpose", "torchvision"}
 

@@ -8,7 +8,7 @@ hands its model are within the warp's bar of the JAX package's
 come from the port's anti-aliased rasteriser and the JAX package's
 OpenCV: drawn over the same canvas, each person's ink centroid within
 0.5 px and its ink within 15 % of OpenCV's; the overlay and dump files
-have the JAX package's stems (``.png`` for ``.jpg``), sizes and ink.
+have the JAX package's names (``.jpg``), sizes and ink.
 """
 
 import json
@@ -202,7 +202,8 @@ def test_default_models_take_the_device_and_local_weights(tmp_path, monkeypatch)
 
 def test_overlay_writers_match_jax_files(tmp_path, monkeypatch):
     """s6 and s8 over missing images (black canvases): the port's files
-    against the arrays the JAX package hands ``cv2.imwrite``."""
+    against the JAX package's, the arrays it hands ``cv2.imwrite`` as
+    ``cv2.imwrite`` writes them (JPEG at quality 95)."""
     written = {}
     monkeypatch.setattr(cv2, "imwrite", lambda path, img: written.setdefault(path, img.copy()))
     rs = np.random.RandomState(1)
@@ -232,9 +233,9 @@ def test_overlay_writers_match_jax_files(tmp_path, monkeypatch):
                 outs.append(mod.vis_compare_pseudo_kpt2d(*dbs, str(tmp_path), str(tmp_path / sub),
                                                          num_samples=2))
         for a, b in zip(*outs):
-            assert os.path.splitext(os.path.basename(a))[0] == os.path.splitext(
-                os.path.basename(b))[0] and b.endswith(".png")
-            ia, ib = _ink(written[a]), _ink(imread_any(b))
+            assert os.path.basename(a) == os.path.basename(b) and b.endswith(".jpg")
+            jax_file = cv2.imdecode(cv2.imencode(os.path.splitext(a)[1], written[a])[1], 1)
+            ia, ib = _ink(jax_file), _ink(imread_any(b))
             assert ia.shape == ib.shape and ib.max() > 0
             assert abs(ib.sum() / ia.sum() - 1) <= 0.15
             assert np.abs(_centroid(ia) - _centroid(ib)).max() <= 0.5

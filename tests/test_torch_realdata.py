@@ -1,7 +1,8 @@
 """The port's real-data datasets against the JAX package's, on fabricated
 trees in the reference's layouts: a mini CMU Panoptic tree written by
 ``mini_panoptic.write_panoptic_tree`` (calibration and ``hdPose3d_stage1_coco19``
-JSON, rendered 960x540 views stored as PNG at the ``.jpg`` paths), the
+JSON, rendered 960x540 views stored as JPEG by the port's encoder, which
+the JAX package reads through OpenCV and the port through its own codec), the
 Shelf/Campus files (``actorsGT.mat``, calibration, 2D predictions, the
 mmpose pickle, a pose bank), plus ``utils/flip``, ``eval/tracking`` and
 both evaluation protocols. The sequence lists are cut to 2 train and 1

@@ -157,6 +157,6 @@ def test_dry_assets_and_vis_attn(mini_panoptic, tmp_path, restore_logging):  # n
     precision = evaluate.main(common + small + ["--test-file", pth, "--vis-attn"])
     assert precision is not None
     run = tmp_path / "panoptic" / "multi_person_posenet_ssv_18" / "mini_eval"
-    grid = imread_any(str(run / "attn_vis.png"))
+    grid = imread_any(str(run / "attn_vis.jpg"))
     assert grid is not None and grid.shape == (4 * 16, 16 * 32, 3) and grid.max() > grid.min()
     assert (run / "predictions_dump.pkl").exists()

@@ -10,7 +10,8 @@ float32 width with DEBUG.DEBUG and the 3D plots on, validation on
 ``cli.evaluate --vis-attn``, and ``track_sequence`` over its dump.
 
 Checks: every step trains (finite losses), every PRINT_FREQ-th step writes
-all five debug dumps (the 2D PNGs and the two matplotlib plots), each a
+all five debug dumps (the three 2D ``.jpg`` and the two matplotlib ``.png``
+plots), each a
 non-blank image; the pseudo labels keep 80 % of the GT people or more;
 the dump holds every validation frame.
 """
@@ -67,7 +68,7 @@ def test_panoptic_ssv_epoch_writes_every_debug_dump(tmp_path, monkeypatch, resto
     pseudo = rep["pseudo_labels"]
     assert sum(pseudo["people_per_record"]) >= 0.8 * sum(pseudo["gt_people_per_record"])
     stems = [f"train_0_{i}" for i in (0, 2)]
-    kinds = ("gt.png", "hm_pred.png", "views_pred.png", "3d_poses.png", "3d_roots.png")
+    kinds = ("gt.jpg", "hm_pred.jpg", "views_pred.jpg", "3d_poses.png", "3d_roots.png")
     assert rep["dumps"] == 2 and rep["debug_dump_seconds"] > 0
     # the loops record the samplers' launches, none on the CPU
     assert all(n == 0 for path in rep["launches"].values() for n in path.values())
@@ -78,4 +79,4 @@ def test_panoptic_ssv_epoch_writes_every_debug_dump(tmp_path, monkeypatch, resto
     assert rep["dump_frames"] == 1 and len(rep["tracks"]) == 1
     assert all(np.isfinite(a) for a in rep["validation"]["aps"])
     assert rep["evaluate"]["precision"] is not None
-    assert os.path.exists(os.path.join(rep["run_dir"], "attn_vis.png"))
+    assert os.path.exists(os.path.join(rep["run_dir"], "attn_vis.jpg"))
