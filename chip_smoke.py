@@ -957,13 +957,14 @@ def finite_meters(meters):
 
 
 def epoch_report(meters):
-    """steps/s, the loop's mean data and batch times (ms) and data share of
-    one epoch's ``meters_out``."""
+    """steps/s, the loop's mean data and batch times (ms), data share and
+    host syncs of one epoch's ``meters_out``."""
     return {"steps": meters["steps"], "seconds": meters["seconds"],
             "steps_per_s": meters["steps"] / meters["seconds"],
             "data_ms_mean": meters["data_time"].avg * 1e3,
             "batch_ms_mean": meters["batch_time"].avg * 1e3,
             "data_share": meters["data_time"].sum / meters["seconds"],
+            "host_syncs": meters["host_syncs"],
             "losses": {k: m.avg for k, m in meters.items()
                        if k.startswith("loss") and hasattr(m, "avg")}}
 
@@ -1037,6 +1038,7 @@ def engine_flagship():
         "train_frames": len(train_ds), "test_frames": len(test_ds),
         "epoch0": epoch_report(m0), "epoch1_resumed": epoch_report(m1),
         "validation": {"batches": batches, "seconds": val_s, "precision": precision,
+                       "host_syncs": metrics["host_syncs"],
                        **{k: metrics[k] for k in ("aps", "mpjpe", "recall500", "aps_root",
                                                   "mpjpe_root", "recall500_root")}},
         "checkpoint": {"path": os.path.relpath(path, ROOT), "bytes": ckpt_bytes,

@@ -3,11 +3,14 @@
     python3 scripts/profile_torch_inference.py [--batch 8] [--reps 5]
 
 The flagship cam5 config (selfpose3d_tpu_torch.config.flagship_cfg) with
-random weights from seed 0 on the synthetic 3-person scene. Times the
-stages of do_inference with CUDA events (backbone; RootNet sampling, V2V
-and proposals; PoseNet), then traces one call with torch.profiler: the
-device-busy share of its wall time, device time by kernel family, and the
-top kernels. Prints one JSON line. Needs a CUDA device.
+random weights from seed 0 on the synthetic 3-person scene. Times
+do_inference on the host clock, then traces ``--reps`` calls with
+torch.profiler: the device-busy share of their wall time, device time by
+kernel family, the top kernels, and the stages per call as the port's own
+spans record them (``selfpose3d_tpu_torch/utils/spans.py``: backbone, RootNet
+holding its proposals, PoseNet; device ms from the CUDA events around each,
+total and self) with the host syncs a call makes. Prints one JSON line.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -27,30 +30,19 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from selfpose3d_tpu_torch.config import flagship_cfg  # noqa: E402
 from selfpose3d_tpu_torch.data.synthetic import make_synthetic_branch  # noqa: E402
 from selfpose3d_tpu_torch.models import get_model  # noqa: E402
-from selfpose3d_tpu_torch.ops.proposal import proposals_soft  # noqa: E402
+from selfpose3d_tpu_torch.utils import spans  # noqa: E402
 
 
-def timed(ms, name, fn, reps):
-    """fn() between two CUDA events; adds its mean device time to ms[name]."""
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    out = fn()
-    b.record()
-    torch.cuda.synchronize()
-    ms[name] += a.elapsed_time(b) / reps
-    return out
-
-
-def run_stages(model, br, ms, reps):
-    """do_inference's calls, in its order, each timed as a stage."""
-    rn = model.root_net
-    hm = timed(ms, "backbone", lambda: model.heatmaps(br), reps)
-    cubes = timed(ms, "root_sampling", lambda: rn.unproject(
-        model.root_heatmaps(hm), br.cam, br.trans, br.orig_wh), reps)
-    rc = timed(ms, "root_v2v", lambda: rn.v2v_net(cubes)[..., 0], reps)
-    gc = timed(ms, "proposals", lambda: proposals_soft(
-        rc, rn.max_people, rn.threshold, rn.space_size, rn.space_center, rn.cube_size), reps)
-    timed(ms, "pose_net", lambda: model.pose_net(hm, br.cam, br.trans, br.orig_wh, gc), reps)
+def stages_per_call(calls: int) -> dict:
+    """The spans recorded over ``calls`` traced calls, per call: each
+    name's device and host ms, total and self, and the host syncs."""
+    s = spans.summary()
+    out = {name: {k: round(v[k] / calls, 3) for k in
+                  ("device_ms", "device_self_ms", "host_ms", "host_self_ms")}
+           for name, v in s["spans"].items()}
+    syncs = sum(n for r in s["roots"] for k, n in r["counts"].items()
+                if k.startswith("host_syncs."))
+    return {"device_clock": s["device_clock"], "stages": out, "host_syncs": syncs / calls}
 
 
 def family(name: str) -> str:
@@ -125,10 +117,6 @@ def main() -> int:
     model.do_inference(br)
     torch.cuda.synchronize()
 
-    ms = defaultdict(float)
-    for _ in range(args.reps):
-        run_stages(model, br, ms, args.reps)
-
     t0 = time.perf_counter()
     for _ in range(args.reps):
         model.do_inference(br)
@@ -137,9 +125,11 @@ def main() -> int:
 
     from torch.profiler import ProfilerActivity, profile
 
+    spans.reset()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.do_inference(br)
+        for _ in range(args.reps):
+            model.do_inference(br)
         torch.cuda.synchronize()
         traced_wall_us = (time.perf_counter() - t0) * 1e6
     traced = summarize_trace(prof, traced_wall_us)
@@ -147,8 +137,8 @@ def main() -> int:
         "nvidia_smi": smi, "batch": args.batch, "reps": args.reps,
         "do_inference_ms": round(wall_ms, 3),
         "frames_per_s": round(args.batch * 1e3 / wall_ms, 3),
-        "stage_ms": {k: round(v, 3) for k, v in ms.items()},
-        "traced_call": traced,
+        "per_traced_call": stages_per_call(args.reps),
+        "traced_calls": traced,
         "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2 ** 30, 3),
     }))
     return 0

@@ -4,14 +4,15 @@
 
 The flagship cam5 config with every candidate kept valid (THRESHOLD = -100),
 batch cfg.TRAIN.BATCH_SIZE, random weights from seed 0, three synthetic
-augmentation branches, Adam. After one warm-up step it times, with CUDA
-events, the forward (``ssv_losses``), the backward and the optimizer update
-of each step, and inside the forward the four sub-networks (forward hooks:
-backbone on 3B*V images, attention net on 2B*V, RootNet's V2V twice, PoseNet's
-V2V on 2B*K cubes); what is left of the forward is sampling, projection,
-rendering, matching and the losses. Then it traces one step with
-torch.profiler: device-busy share, device time by kernel family, the top
-kernels, and the device time of the port's three samplers by name. One
+augmentation branches, Adam, through ``make_ssv_train_step``. After one
+warm-up step it times ``--reps`` steps on the host clock. Then it traces
+``--reps`` steps with torch.profiler: device-busy share, device time by
+kernel family, the top kernels, the device time of the port's three
+samplers by name, and the stages per step as the port's own spans record
+them (``selfpose3d_tpu_torch/utils/spans.py``: backbone on 3B*V images,
+attention net on 2B*V, RootNet, PoseNet on 2B*K cubes, the losses after
+PoseNet with the matching, backward, optimizer; device ms from the CUDA
+events around each, total and self) with the host syncs a step makes. One
 more step reads what the adjoint kernel is given: per launch its view, the
 share of cotangent rows (points) and elements that are exactly zero, which
 the kernel skips, and how the zero rows split into points outside that
@@ -37,34 +38,11 @@ sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "scripts"))
 
 from chip_smoke import cuda_ms, train_branches, train_cfg  # noqa: E402
-from profile_torch_inference import summarize_trace  # noqa: E402
+from profile_torch_inference import stages_per_call, summarize_trace  # noqa: E402
 from selfpose3d_tpu_torch.models import get_model  # noqa: E402
 from selfpose3d_tpu_torch.ops import slicewarp, unproject  # noqa: E402
-from selfpose3d_tpu_torch.train import create_train_state  # noqa: E402
-
-
-class ForwardTimer:
-    """CUDA events around every forward call of a module."""
-
-    def __init__(self, module):
-        self.pairs = []
-        module.register_forward_pre_hook(self._start)
-        module.register_forward_hook(self._stop)
-
-    def _start(self, module, args):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        self.pairs.append([ev, None])
-
-    def _stop(self, module, args, output):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        self.pairs[-1][1] = ev
-
-    def take_ms(self) -> float:
-        total = sum(a.elapsed_time(b) for a, b in self.pairs)
-        self.pairs = []
-        return total
+from selfpose3d_tpu_torch.train import create_train_state, make_ssv_train_step  # noqa: E402
+from selfpose3d_tpu_torch.utils import spans  # noqa: E402
 
 
 def adjoint_cotangents(one_step):
@@ -127,39 +105,17 @@ def main() -> int:
     branches = train_branches(cfg, B, seed=0, device="cuda")
     state = create_train_state(cfg, model)
     gen = torch.Generator().manual_seed(0)
-    timers = {"backbone_fwd": ForwardTimer(model.backbone), "attn_fwd": ForwardTimer(model.attn),
-              "root_v2v_fwd_x2": ForwardTimer(model.root_net.v2v_net),
-              "pose_v2v_fwd": ForwardTimer(model.pose_net.v2v_net)}
+    step = make_ssv_train_step(model, train_posenet_stage=True, use_l1_stage=True)
 
-    def one_step(ms=None):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        ev[0].record()
-        _, _, _, losses = model.ssv_losses(*branches, train_posenet_stage=True,
-                                           use_l1_stage=True, train=True, generator=gen)
-        total = sum(v.mean() for v in losses.values())
-        ev[1].record()
-        total.backward()
-        ev[2].record()
-        state.apply_gradients()
-        ev[3].record()
+    def one_step():
+        step(state, *branches, generator=gen)
         torch.cuda.synchronize()
-        nets = {k: t.take_ms() for k, t in timers.items()}
-        if ms is not None:
-            fwd = ev[0].elapsed_time(ev[1])
-            for k, v in nets.items():
-                ms[k] += v
-            ms["forward_rest (sampling, projection, rendering, matching, losses)"] += (
-                fwd - sum(nets.values()))
-            ms["forward"] += fwd
-            ms["backward"] += ev[1].elapsed_time(ev[2])
-            ms["optimizer"] += ev[2].elapsed_time(ev[3])
 
     one_step()  # warm-up
     torch.cuda.reset_peak_memory_stats()
-    ms = defaultdict(float)
     t0 = time.perf_counter()
     for _ in range(args.reps):
-        one_step(ms)
+        one_step()
     wall_ms = (time.perf_counter() - t0) / args.reps * 1e3
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
@@ -169,26 +125,28 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     slicewarp.reset_launches()
+    spans.reset()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        one_step()
+        for _ in range(args.reps):
+            one_step()
         traced_wall_us = (time.perf_counter() - t0) * 1e6
     samplers = defaultdict(lambda: [0.0, 0])
     for e in prof.events():
         if e.device_type == DeviceType.CUDA and "sample_view" in e.name:
             key = e.name.split("<")[0].split("::")[-1]
-            samplers[key][0] += (e.time_range.end - e.time_range.start) / 1e3
+            samplers[key][0] += (e.time_range.end - e.time_range.start) / 1e3 / args.reps
             samplers[key][1] += 1
     print(json.dumps({
         "nvidia_smi": smi, "batch": B, "reps": args.reps,
         "train_step_ms": round(wall_ms, 3), "samples_per_s": round(B * 1e3 / wall_ms, 4),
-        "stage_ms": {k: round(v / args.reps, 3) for k, v in ms.items()},
+        "per_traced_step": stages_per_call(args.reps),
         "peak_mem_gib": round(peak, 3),
-        "launches_per_step": dict(slicewarp.LAUNCHES),
+        "launches_per_step": {k: n / args.reps for k, n in slicewarp.LAUNCHES.items()},
         "adjoint_cotangents": cotangents,
-        "sampler_device_ms": {k: {"ms": round(v[0], 3), "launches": v[1]}
-                              for k, v in samplers.items()},
-        "traced_step": summarize_trace(prof, traced_wall_us),
+        "sampler_device_ms_per_step": {k: {"ms": round(v[0], 3), "launches": v[1] / args.reps}
+                                       for k, v in samplers.items()},
+        "traced_steps": summarize_trace(prof, traced_wall_us),
     }))
     return 0
 

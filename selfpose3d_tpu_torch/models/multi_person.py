@@ -47,6 +47,7 @@ from selfpose3d_tpu_torch.ops.gaussian import render_gaussian_heatmaps
 from selfpose3d_tpu_torch.ops.matching import masked_assignment_cost
 from selfpose3d_tpu_torch.ops.proposal import match_proposals_to_gt
 from selfpose3d_tpu_torch.parallel import mesh
+from selfpose3d_tpu_torch.utils import spans
 
 
 def _mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -128,6 +129,7 @@ def _pose_net(c: Config, dtype: torch.dtype) -> PoseNet:
     )
 
 
+@spans.span("sp3d.backbone")
 def backbone_heatmaps(backbone: nn.Module, branch: AugBranch, fold: bool) -> torch.Tensor:
     """Backbone -> (B, V, Hh, Wh, J) float32; the given heatmaps where the
     branch has no images.
@@ -182,6 +184,7 @@ class MultiPersonPoseNetSSV(nn.Module):
         ``fold`` in training."""
         return backbone_heatmaps(getattr(self, "backbone", None), branch, fold)
 
+    @spans.span("sp3d.attn")
     def attns(self, branch: AugBranch) -> torch.Tensor:
         """Attention net on the folded (B, V) batch -> (B, V, Hh, Wh, J) in [0, 1]."""
         B, V = branch.views.shape[:2]
@@ -196,6 +199,7 @@ class MultiPersonPoseNetSSV(nn.Module):
             return heatmaps[..., rid : rid + 1].detach()
         return heatmaps
 
+    @spans.span("sp3d.infer")
     @torch.no_grad()
     def do_inference(self, branch: AugBranch, visualize_attn: bool = False):
         """-> (pred (B, K, J, 5), heatmaps (B, V, H, W, J), grid_centers (B, K, 5)
@@ -250,6 +254,7 @@ class MultiPersonPoseNetSSV(nn.Module):
           joints_vis: (B, V, P, J, 2)
         """
         c = self.cfg
+        spans.count("host_syncs.l1_norm")  # a blocking copy of a host list
         norm = torch.tensor(
             [float(c.NETWORK.IMAGE_SIZE[0]), float(c.NETWORK.IMAGE_SIZE[1])],
             dtype=torch.float32, device=kps_2d.device,
@@ -276,14 +281,18 @@ class MultiPersonPoseNetSSV(nn.Module):
             d = losses.detach()
             keep = torch.ones_like(losses)
             if not across:
+                # a nonzero, the index read, and the zero copied in from the host
+                spans.count("host_syncs.l1_attn", 3)
                 keep[int(torch.nonzero(d == d.max())[0])] = 0.0
                 return (losses * keep).sum() / (losses.shape[0] - 1)
             W, r = mesh.world(), mesh.rank()
             top = d.max()
             held = top == mesh.all_reduce_max(top)
             # the first rank holding the global worst term drops it
+            spans.count("host_syncs.l1_attn")
             first = -int(mesh.all_reduce_max(torch.where(held, -r, -W).to(torch.int64)))
             if first == r:
+                spans.count("host_syncs.l1_attn", 3)
                 keep[int(torch.nonzero(d == top)[0])] = 0.0
             return W * (losses * keep).sum() / (W * losses.shape[0] - 1)
         return losses.mean()
@@ -424,14 +433,16 @@ class MultiPersonPoseNetSSV(nn.Module):
                 heatmaps1, branch1.cam, branch1.trans, branch1.orig_wh, gc_pose,
                 hflip=branch1.hflip, bucketed=False,
             )
-            any_valid = _any_valid(valid, across)
-            kps = project_points_with_trans(
-                pred1.reshape(B, 1, Kp * J, 3), branch1.cam, branch1.trans
-            ).reshape(B, V, Kp, J, 2)
-            hm11 = render_gaussian_heatmaps(
-                kps, hm_wh, sigma=3.0, coord_scale=0.25, mask=valid[:, None].expand(B, V, Kp),
-            ).permute(0, 1, 3, 4, 2)
-            losses["loss_pose3d_ssv"] = _mse(branch1.target_2d, hm11) * any_valid
+            with spans.span("sp3d.losses"):
+                any_valid = _any_valid(valid, across)
+                kps = project_points_with_trans(
+                    pred1.reshape(B, 1, Kp * J, 3), branch1.cam, branch1.trans
+                ).reshape(B, V, Kp, J, 2)
+                hm11 = render_gaussian_heatmaps(
+                    kps, hm_wh, sigma=3.0, coord_scale=0.25,
+                    mask=valid[:, None].expand(B, V, Kp),
+                ).permute(0, 1, 3, 4, 2)
+                losses["loss_pose3d_ssv"] = _mse(branch1.target_2d, hm11) * any_valid
             return pred_out(pred1), heatmaps3, grid_centers, losses
 
         # one PoseNet pass over both augmented branches (2B)
@@ -440,37 +451,40 @@ class MultiPersonPoseNetSSV(nn.Module):
             branches_12.orig_wh, torch.cat([gc_pose, gc_pose], dim=0),
             hflip=branches_12.hflip, bucketed=False,
         )
-        pred1, pred2 = pred_12[:B], pred_12[B:]
-        valid = valid_12[:B]
-        any_valid = _any_valid(valid, across)
+        with spans.span("sp3d.losses"):
+            pred1, pred2 = pred_12[:B], pred_12[B:]
+            valid = valid_12[:B]
+            any_valid = _any_valid(valid, across)
 
-        # cross-projection: pred2 into branch1's frame, pred1 into branch2's
-        # (ref: :432-437); the cameras are shared, trans and hflip differ
-        pred_cross = torch.cat([pred2, pred1], dim=0)  # (2B, Kp, J, 3)
-        kps_cross = project_points_with_trans(
-            pred_cross.reshape(2 * B, 1, Kp * J, 3), branches_12.cam, branches_12.trans
-        ).reshape(2 * B, V, Kp, J, 2)
-        hm_cross = render_gaussian_heatmaps(
-            kps_cross, hm_wh, sigma=3.0, coord_scale=0.25,
-            mask=valid_12[:, None].expand(2 * B, V, Kp),
-        ).permute(0, 1, 3, 4, 2)  # (2B, V, H, W, J): rows [:B] pred2 in frame 1
-        targets_12 = branches_12.target_2d
-        if c.WITH_ATTN:
-            losses["loss_pose3d_ssv"] = (
-                2.0 * torch.mean(((targets_12 - hm_cross) ** 2) * attns_12)
-            ) * any_valid
-            losses["loss_attn_ssv"] = (
-                2.0 * _mse(attns_12, torch.ones_like(attns_12))
-            ) * c.ATTN_WEIGHT * any_valid
-        else:
-            losses["loss_pose3d_ssv"] = (2.0 * _mse(targets_12, hm_cross)) * any_valid
+            # cross-projection: pred2 into branch1's frame, pred1 into branch2's
+            # (ref: :432-437); the cameras are shared, trans and hflip differ
+            pred_cross = torch.cat([pred2, pred1], dim=0)  # (2B, Kp, J, 3)
+            kps_cross = project_points_with_trans(
+                pred_cross.reshape(2 * B, 1, Kp * J, 3), branches_12.cam, branches_12.trans
+            ).reshape(2 * B, V, Kp, J, 2)
+            hm_cross = render_gaussian_heatmaps(
+                kps_cross, hm_wh, sigma=3.0, coord_scale=0.25,
+                mask=valid_12[:, None].expand(2 * B, V, Kp),
+            ).permute(0, 1, 3, 4, 2)  # (2B, V, H, W, J): rows [:B] pred2 in frame 1
+            targets_12 = branches_12.target_2d
+            if c.WITH_ATTN:
+                losses["loss_pose3d_ssv"] = (
+                    2.0 * torch.mean(((targets_12 - hm_cross) ** 2) * attns_12)
+                ) * any_valid
+                losses["loss_attn_ssv"] = (
+                    2.0 * _mse(attns_12, torch.ones_like(attns_12))
+                ) * c.ATTN_WEIGHT * any_valid
+            else:
+                losses["loss_pose3d_ssv"] = (2.0 * _mse(targets_12, hm_cross)) * any_valid
 
-        if c.USE_L1 and use_l1_stage:
-            kps21, kps12 = kps_cross[:B], kps_cross[B:]
-            losses["loss_pose3d_l1_ssv"] = (
-                self._l1_matching_loss(kps12, valid, branch2.joints, branch2.joints_vis, across)
-                + self._l1_matching_loss(kps21, valid, branch1.joints, branch1.joints_vis, across)
-            ) * c.L1_WEIGHT * any_valid
+            if c.USE_L1 and use_l1_stage:
+                kps21, kps12 = kps_cross[:B], kps_cross[B:]
+                losses["loss_pose3d_l1_ssv"] = (
+                    self._l1_matching_loss(kps12, valid, branch2.joints, branch2.joints_vis,
+                                           across)
+                    + self._l1_matching_loss(kps21, valid, branch1.joints, branch1.joints_vis,
+                                             across)
+                ) * c.L1_WEIGHT * any_valid
         return pred_out(pred2), heatmaps3, grid_centers, losses
 
 
@@ -511,8 +525,15 @@ class MultiPersonPoseNet(nn.Module):
         returns after ``loss_2d``; USE_GT takes the GT roots as the
         candidates. Sets the sub-networks' train/eval modes (the backbone
         trains only under NETWORK.TRAIN_BACKBONE); autograd stays as the
-        caller has it.
+        caller has it. A call with ``train=False`` is the span
+        ``sp3d.infer``; in training the train step's span holds the call.
         """
+        if train:
+            return self._forward(branch, True)
+        with spans.span("sp3d.infer"):
+            return self._forward(branch, False)
+
+    def _forward(self, branch: AugBranch, train: bool):
         c = self.cfg
         self._set_modes(train)
         heatmaps = backbone_heatmaps(getattr(self, "backbone", None), branch, fold=train)
@@ -560,12 +581,13 @@ class MultiPersonPoseNet(nn.Module):
 
         # weighted L1 against the matched GT poses (ref: multi_person_posenet.py:84-100)
         if train and branch.joints_3d is not None:
-            gt_idx = grid_centers[..., 3].clamp(min=0).to(torch.int64)[..., None, None]
-            gt = torch.gather(branch.joints_3d, 1, gt_idx.expand(B, K, J, 3))
-            w = torch.gather(branch.joints_3d_vis[..., 0:1], 1, gt_idx.expand(B, K, J, 1))
-            per_cand = (poses * w - gt * w).abs().mean(dim=(-1, -2))  # (B, K)
-            count, scale = valid.sum(), 1.0
-            if train and mesh.world() > 1:  # the global batch's mean
-                count, scale = mesh.all_reduce_sum(count.detach()), float(mesh.world())
-            losses["loss_cord"] = scale * (per_cand * valid).sum() / count.clamp(min=1.0)
+            with spans.span("sp3d.losses"):
+                gt_idx = grid_centers[..., 3].clamp(min=0).to(torch.int64)[..., None, None]
+                gt = torch.gather(branch.joints_3d, 1, gt_idx.expand(B, K, J, 3))
+                w = torch.gather(branch.joints_3d_vis[..., 0:1], 1, gt_idx.expand(B, K, J, 1))
+                per_cand = (poses * w - gt * w).abs().mean(dim=(-1, -2))  # (B, K)
+                count, scale = valid.sum(), 1.0
+                if train and mesh.world() > 1:  # the global batch's mean
+                    count, scale = mesh.all_reduce_sum(count.detach()), float(mesh.world())
+                losses["loss_cord"] = scale * (per_cand * valid).sum() / count.clamp(min=1.0)
         return pred, heatmaps, grid_centers, losses

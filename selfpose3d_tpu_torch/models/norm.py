@@ -37,6 +37,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from selfpose3d_tpu_torch.parallel import mesh
+from selfpose3d_tpu_torch.utils import spans
 
 
 class _FlaxBatchNorm:
@@ -57,6 +58,10 @@ class _FlaxBatchNorm:
             mean = mean.detach().float()
             var = invstd.detach().float().pow(-2) - self.eps  # the biased variance
         else:
+            # indexing by a mask reads its nonzero count, and so does the
+            # backward of the indexing
+            grad = torch.is_grad_enabled() and x.requires_grad
+            spans.count("host_syncs.bn_mask", 2 if grad else 1)
             dims = [0] + list(range(2, x.dim()))
             var, mean = torch.var_mean(x[mask].float(), dim=dims, unbiased=False)
             s = self.weight * torch.rsqrt(var + self.eps)
@@ -105,6 +110,8 @@ class _GlobalBatchNorm(torch.autograd.Function):
     def forward(ctx, x, weight, bias, mask, eps):
         C, shape = x.shape[1], (1, -1) + (1,) * (x.dim() - 2)
         x = x.contiguous(memory_format=_memory_format(x))
+        if mask is not None:
+            spans.count("host_syncs.bn_mask")
         xs = x if mask is None else x[mask]
         n = xs.numel() // C
         if n == 0:  # no example of this rank in the mask

@@ -27,6 +27,7 @@ from selfpose3d_tpu_torch.models.v2v_net import V2VNet
 from selfpose3d_tpu_torch.ops.softargmax import soft_argmax_ndhwc
 from selfpose3d_tpu_torch.ops.unproject import sample_cubes
 from selfpose3d_tpu_torch.parallel import mesh
+from selfpose3d_tpu_torch.utils import spans
 
 
 class PoseNet(nn.Module):
@@ -62,9 +63,11 @@ class PoseNet(nn.Module):
             return K
         flags = grid_centers[..., 3] >= 0
         slot = torch.arange(1, K + 1, device=grid_centers.device)
+        spans.count("host_syncs.posenet_bucket")
         needed = int(torch.where(flags, slot, 0).max())
         return next(b for b in buckets if b >= needed)
 
+    @spans.span("sp3d.posenet")
     def forward(
         self,
         heatmaps: torch.Tensor,
@@ -113,12 +116,15 @@ class PoseNet(nn.Module):
         bn_mask = None
         if self.training:
             sel = valid.reshape(B * K) > 0
+            spans.count("host_syncs.posenet_bn_mask")
             if mesh.world() > 1:
                 # the global batch's: the valid candidates of every rank
                 # (a mask of all of them is the unmasked batch)
                 bn_mask = sel if mesh.agree_max(int(sel.any())) else None
-            elif bool(sel.any()) and not bool(sel.all()):
-                bn_mask = sel
+            elif bool(sel.any()):
+                spans.count("host_syncs.posenet_bn_mask")
+                if not bool(sel.all()):
+                    bn_mask = sel
         scored = self.v2v_net(cubes, bn_mask)  # (B*K, X, Y, Z, J) float32
 
         offs = axis_offsets(self.grid_size, self.cube_size, heatmaps.device)

@@ -31,6 +31,7 @@ from selfpose3d_tpu_torch.ops.proposal import (
 )
 from selfpose3d_tpu_torch.ops.unproject import unproject_heatmaps
 from selfpose3d_tpu_torch.parallel import mesh
+from selfpose3d_tpu_torch.utils import spans
 
 
 class RootNet(nn.Module):
@@ -63,6 +64,7 @@ class RootNet(nn.Module):
         self.v2v_net = V2VNet(in_channels, 1, dtype=dtype)
 
     def unproject(self, heatmaps, cam, trans, orig_wh, hflip=None) -> torch.Tensor:
+        spans.count("host_syncs.rootnet_center")  # a blocking copy of a host list
         grid = compute_grid(
             self.space_size,
             torch.tensor(self.space_center, dtype=torch.float32, device=heatmaps.device),
@@ -72,6 +74,7 @@ class RootNet(nn.Module):
             heatmaps, grid, cam, trans, self.image_wh, orig_wh, self.cube_size, hflip=hflip
         )
 
+    @spans.span("sp3d.rootnet")
     def forward(
         self,
         heatmaps: torch.Tensor,
@@ -96,6 +99,7 @@ class RootNet(nn.Module):
             (sc[d] - ss[d] / 2 + rr[d][0], sc[d] + ss[d] / 2 + rr[d][1]) for d in range(3)
         )
 
+    @spans.span("sp3d.rootnet")
     def train_synth(
         self,
         cam: CameraParams,
@@ -161,6 +165,8 @@ class RootNet(nn.Module):
             num_roots = torch.as_tensor(inject["counts"]).to(torch.int64)
             roots = torch.as_tensor(inject["roots"], dtype=torch.float32)
             noise = torch.as_tensor(inject["noise"], dtype=torch.float32).reshape(B, V, 1, H, W)
+        # blocking copies of the host draws and of the grid's axes below
+        spans.count("host_syncs.rootnet_synth", 6)
         roots, noise = roots.to(dev, cam.R.dtype), noise.to(dev, cam.R.dtype)
         counts = num_roots.to(dev).repeat_interleave(B // groups)  # (B,)
         mask_b = (torch.arange(P, device=dev)[None, :] < counts[:, None]).to(torch.float32)

@@ -19,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from selfpose3d_tpu_torch.utils import spans
+
 INF = np.float32(1e12)
 
 
@@ -75,11 +77,13 @@ def hungarian(cost: torch.Tensor) -> torch.Tensor:
       (..., K) int64 row2col on ``cost``'s device.
     """
     K = cost.shape[-1]
+    spans.count("host_syncs.hungarian", 2)  # the costs to the host, the assignment back
     flat = cost.detach().reshape(-1, K, K).to("cpu", torch.float32).numpy()
     out = np.stack([hungarian_np(c) for c in flat]) if len(flat) else np.zeros((0, K), np.int64)
     return torch.from_numpy(out).to(cost.device).reshape(cost.shape[:-1])
 
 
+@spans.span("sp3d.matching")
 def masked_assignment_cost(
     cost: torch.Tensor, row_valid: torch.Tensor, col_valid: torch.Tensor
 ) -> torch.Tensor:

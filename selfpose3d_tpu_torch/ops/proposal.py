@@ -8,6 +8,8 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from selfpose3d_tpu_torch.utils import spans
+
 
 def max_pool_nms_3d(x: torch.Tensor, kernel: int = 3) -> torch.Tensor:
     """Keep-equal NMS: zero voxels that are not their 3^3 local max.
@@ -55,12 +57,14 @@ def voxel_index_to_world(
 ) -> torch.Tensor:
     """Voxel indices -> world mm (ref: cuboid_proposal_net_soft.py:46-52)."""
     kw = dict(dtype=torch.float32, device=index.device)
+    spans.count("host_syncs.voxel_to_world", 3)  # three blocking copies of host lists
     cube = torch.tensor([float(s) for s in cube_size], **kw)
     size = torch.tensor([float(s) for s in space_size], **kw)
     center = torch.tensor([float(s) for s in space_center], **kw)
     return index.to(torch.float32) / (cube - 1.0) * size + center - size / 2.0
 
 
+@spans.span("sp3d.proposals")
 def proposals_soft(
     root_cubes: torch.Tensor,
     max_num: int,

@@ -16,7 +16,8 @@ A wrapper takes float32 tensors. Given CPU tensors it runs the plain
 version (explicit 4-tap gathers, ``ops/sampling.py``; four ``index_add_``
 for the adjoint). Given CUDA tensors (contiguous) it launches the kernel
 or raises; it never falls back.
-``LAUNCHES`` counts kernel launches per wrapper, and nothing else.
+``LAUNCHES`` counts kernel launches per wrapper, and nothing else; it is
+registered as the counters ``launches.<wrapper>`` of ``utils/spans.py``.
 """
 
 from __future__ import annotations
@@ -28,9 +29,11 @@ import torch
 from selfpose3d_tpu_torch.device import kernel_route
 from selfpose3d_tpu_torch.ops import build
 from selfpose3d_tpu_torch.ops.sampling import bilinear_sample as sample_view_plain
+from selfpose3d_tpu_torch.utils import spans
 
 MAX_CHANNELS = 32
 LAUNCHES = {"sample_view": 0, "sample_views_mean": 0, "sample_view_adjoint": 0}
+spans.register("launches.", LAUNCHES)
 
 
 def reset_launches() -> None:

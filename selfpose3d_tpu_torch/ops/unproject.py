@@ -20,6 +20,7 @@ import torch
 from selfpose3d_tpu_torch.geometry.cameras import CameraParams, affine_points, project_points
 from selfpose3d_tpu_torch.ops.gaussian import clip01
 from selfpose3d_tpu_torch.ops.slicewarp import sample_view, sample_views_mean
+from selfpose3d_tpu_torch.utils import spans
 
 
 def compute_sample_grid(
@@ -64,6 +65,7 @@ def compute_sample_grid(
         x = xy[..., 0]
         xy = torch.stack([flip * (img_w - x) + (1.0 - flip) * x, xy[..., 1]], dim=-1)
 
+    spans.count("host_syncs.sample_grid", 2)  # two blocking copies of host lists
     scale_hm = torch.tensor([w / img_w, h / img_h], dtype=xy.dtype, device=xy.device)
     denom = torch.tensor([w - 1.0, h - 1.0], dtype=xy.dtype, device=xy.device)
     sample_grid = torch.clamp((xy * scale_hm) / denom * 2.0 - 1.0, -1.1, 1.1)

@@ -32,6 +32,8 @@ import torch
 import torch.distributed as dist
 import torch.nn as nn
 
+from selfpose3d_tpu_torch.utils import spans
+
 
 def init_distributed(backend: Optional[str] = None) -> torch.device:
     """Join the process group that ``torch.distributed.run`` describes
@@ -120,6 +122,7 @@ def agree_max(value: int) -> int:
     """The largest of every rank's ``value`` (a host integer)."""
     if world() == 1:
         return int(value)
+    spans.count("host_syncs.agree_max", 2)  # through the group's device and back
     return int(_all_reduce(torch.tensor([int(value)], dtype=torch.int64),
                            dist.ReduceOp.MAX)[0])
 
@@ -148,6 +151,7 @@ def process_allgather_tree(tree: Any) -> Any:
         return {k: process_allgather_tree(v) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
         return type(tree)(process_allgather_tree(v) for v in tree)
+    spans.count("host_syncs.allgather", 2)  # through the group's device and back
     x = torch.from_numpy(np.ascontiguousarray(tree)).to(_group_device())
     parts = [torch.empty_like(x) for _ in range(world())]
     dist.all_gather(parts, x)

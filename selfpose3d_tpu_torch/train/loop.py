@@ -19,6 +19,7 @@ full set. Logging and the debug dumps are rank 0's.
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import time
@@ -39,16 +40,37 @@ from selfpose3d_tpu_torch.train.step import (
     make_supervised_train_step,
 )
 from selfpose3d_tpu_torch.train.train_state import TrainState
+from selfpose3d_tpu_torch.utils import spans
 from selfpose3d_tpu_torch.utils.meters import AverageMeter
 from selfpose3d_tpu_torch.utils.vis import save_debug_images
 
 logger = logging.getLogger(__name__)
 
 
+def _waited(loader, wait: spans.meter):
+    """The loader's batches, each fetched inside ``wait`` (the span
+    ``sp3d.loader_wait``; ``wait.seconds`` is the last fetch's wait)."""
+    batches = iter(loader)
+    while True:
+        with wait:
+            batch = next(batches, None)
+        if batch is None:
+            return
+        yield batch
+
+
 def _launches_since(before: Dict[str, int]) -> Dict[str, int]:
     """The sampler kernels' launches since ``before``, a copy of
     ``slicewarp.LAUNCHES`` (zero on the CPU, where no kernel launches)."""
     return {k: slicewarp.LAUNCHES[k] - n for k, n in before.items()}
+
+
+def _syncs_since(before: Dict[str, int]) -> Dict[str, int]:
+    """The changes of the counters ``host_syncs.<site>`` since ``before``, a
+    copy of ``spans.counters()``: every wait for the device, in a call or in
+    the loop around it."""
+    return {k: v - before.get(k, 0) for k, v in spans.counters().items()
+            if k.startswith("host_syncs.") and v != before.get(k, 0)}
 
 
 def _device(model) -> torch.device:
@@ -93,7 +115,9 @@ def pick_k_cap(buckets: Tuple[int, ...], num_person: torch.Tensor, K_max: int) -
 
 class _Profile:
     """``SP3D_PROFILE=dir``: a ``torch.profiler`` trace of steps [2, 2 +
-    SP3D_PROFILE_STEPS) of epoch 0, written to ``dir/trace.json`` (rank 0's)."""
+    SP3D_PROFILE_STEPS) of epoch 0, written to ``dir/trace.json``, and the
+    summary of the port's spans recorded over them (``utils/spans.py``) to
+    ``dir/spans.json`` (rank 0's)."""
 
     def __init__(self, epoch: int, dev: torch.device):
         self.dir = os.environ.get("SP3D_PROFILE", "") if epoch == 0 and mesh.rank() == 0 else ""
@@ -107,6 +131,7 @@ class _Profile:
             if self.dev.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             self.prof = torch.profiler.profile(activities=acts)
+            spans.reset()
             self.prof.start()
         if self.prof is not None and i == 2 + self.steps:
             self.stop()
@@ -119,6 +144,8 @@ class _Profile:
         self.prof.stop()
         os.makedirs(self.dir, exist_ok=True)
         self.prof.export_chrome_trace(os.path.join(self.dir, "trace.json"))
+        with open(os.path.join(self.dir, "spans.json"), "w") as f:
+            json.dump(spans.summary(), f, indent=1)
         logger.info("wrote the profile of %d steps to %s", self.steps, self.dir)
         self.prof = None
 
@@ -128,22 +155,24 @@ def _run_epoch(cfg: Config, state: TrainState, loader: PrefetchLoader, epoch: in
     """The epoch loop shared by both trainers: ``run_step(i, batch)`` moves
     the i-th host batch to the device and takes one step -> metrics. Meters and
     logging every PRINT_FREQ steps (a synchronising read of the metrics).
-    ``meters_out`` receives the meters, the steps, the wall seconds and the
-    sampler kernels' launches of the epoch."""
+    ``meters_out`` receives the meters, the steps, the wall seconds, the
+    sampler kernels' launches and the host syncs of the epoch."""
     dev = _device(state.model)
     meters: Dict[str, AverageMeter] = {}
     batch_time, data_time = AverageMeter(), AverageMeter()
     prof = _Profile(epoch, dev)
-    launched = dict(slicewarp.LAUNCHES)
+    launched, synced = dict(slicewarp.LAUNCHES), spans.counters()
+    wait = spans.meter("sp3d.loader_wait")
     t0 = end = time.time()
     steps = 0
-    for i, batch in enumerate(loader):
-        data_time.update(time.time() - end)
+    for i, batch in enumerate(_waited(loader, wait)):
+        data_time.update(wait.seconds)
         prof.at(i)
         metrics = run_step(i, batch)
         steps += 1
         if i % cfg.PRINT_FREQ == 0:
             names = list(metrics)
+            spans.count("host_syncs.log_read")
             values = mesh.mean_over_ranks(torch.stack([metrics[k].float() for k in names])).tolist()
             batch_time.update(time.time() - end)
             for k, v in zip(names, values):
@@ -166,7 +195,7 @@ def _run_epoch(cfg: Config, state: TrainState, loader: PrefetchLoader, epoch: in
     if meters_out is not None:
         meters_out.update(
             steps=steps, seconds=time.time() - t0, data_time=data_time, batch_time=batch_time,
-            launches=_launches_since(launched), **meters,
+            launches=_launches_since(launched), host_syncs=_syncs_since(synced), **meters,
         )
     return state
 
@@ -212,6 +241,7 @@ def train_epoch_ssv(
                  if cfg.DEBUG.DEBUG and output_dir and mesh.rank() == 0 else None)
     debug = {"debug_dumps": 0, "debug_seconds": 0.0,
              "debug_launches": dict.fromkeys(slicewarp.LAUNCHES, 0)}
+    dump = spans.meter("sp3d.debug_dump")
 
     def run_step(i, batch):
         k_cap = pick_k_cap(buckets, batch[2].num_person, K_max)
@@ -221,12 +251,13 @@ def train_epoch_ssv(
         b1, b2, b3 = (b.to(dev, non_blocking=True) for b in batch)
         metrics = steps[k_cap](state, b1, b2, b3, generator=generator)
         if debug_fwd is not None and i % cfg.PRINT_FREQ == 0:
-            t0, launched = time.time(), dict(slicewarp.LAUNCHES)
-            pred2, hm3, gc = debug_fwd(b1, b2, b3)
-            save_debug_images(cfg, b3, hm3, pred2, gc,
-                              os.path.join(output_dir, "debug", f"train_{epoch}_{i}"))
+            launched = dict(slicewarp.LAUNCHES)
+            with dump:
+                pred2, hm3, gc = debug_fwd(b1, b2, b3)
+                save_debug_images(cfg, b3, hm3, pred2, gc,
+                                  os.path.join(output_dir, "debug", f"train_{epoch}_{i}"))
             debug["debug_dumps"] += 1
-            debug["debug_seconds"] += time.time() - t0
+            debug["debug_seconds"] += dump.seconds
             for k, n in _launches_since(launched).items():
                 debug["debug_launches"][k] += n
         return metrics
@@ -284,8 +315,9 @@ def validate_3d(
     its stripe of the frames, pads its rows to the longest stripe's count
     (an empty stripe when there are fewer frames than ranks), and every
     rank gathers all of them (``selfpose3d_tpu/train/loop.py:262-310``).
-    ``metrics_out`` receives the whole report and the sampler kernels'
-    launches of this rank's pass (``launches``).
+    ``metrics_out`` receives the whole report, and the sampler kernels'
+    launches (``launches``) and the host syncs (``host_syncs``) of this
+    rank's pass, the gather included.
 
     Returns the model-selection metric: the mean AP over the thresholds
     (the PCP under the Shelf/Campus protocol), or None.
@@ -308,15 +340,16 @@ def validate_3d(
 
     loader = _loader(len(dataset), batch, make_batch, shuffle=False, num_workers=cfg.WORKERS)
     modes = {m: m.training for m in model.modules()}
-    launched = dict(slicewarp.LAUNCHES)
+    launched, synced = dict(slicewarp.LAUNCHES), spans.counters()
     idx_list, pred_list, root_list = [], [], []
     try:
         model.eval()
         with torch.no_grad():
-            for branch, idxs in loader:
+            for branch, idxs in _waited(loader, spans.meter("sp3d.loader_wait")):
                 pred, _, gc = infer(branch.to(dev, non_blocking=True))
                 n = len(idxs)
                 idx_list.extend(idxs)
+                spans.count("host_syncs.validate_read", 2)
                 pred_list.append(pred[:n].float().cpu().numpy())
                 root_list.append(gc[:n].float().cpu().numpy())
     finally:
@@ -341,7 +374,8 @@ def validate_3d(
     order = np.argsort(idx, kind="stable")
     metrics = dataset.evaluate([preds[i] for i in order], [roots[i] for i in order], output_dir)
     if metrics_out is not None:
-        metrics_out.update(metrics, launches=_launches_since(launched))
+        metrics_out.update(metrics, launches=_launches_since(launched),
+                           host_syncs=_syncs_since(synced))
     if metrics.get("aps") is None:
         if "avg_pcp" in metrics:  # Shelf/Campus PCP protocol (ref: :477-487)
             _info(

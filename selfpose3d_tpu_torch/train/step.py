@@ -21,6 +21,7 @@ from selfpose3d_tpu_torch.config import Config
 from selfpose3d_tpu_torch.data.structures import AugBranch
 from selfpose3d_tpu_torch.parallel import mesh
 from selfpose3d_tpu_torch.train.train_state import TrainState
+from selfpose3d_tpu_torch.utils import spans
 
 
 class SSVLosses(nn.Module):
@@ -86,6 +87,7 @@ def make_ssv_train_step(
     inner = inner_model(model)
     ssv_losses = inner.ssv_losses if model is inner else model
 
+    @spans.span("sp3d.train_step")
     def train_step(
         state: TrainState,
         b1: AugBranch,
@@ -115,8 +117,10 @@ def _update(state: TrainState, losses: Dict[str, torch.Tensor]) -> Dict[str, tor
     -> the detached means and their sum under ``"loss"``."""
     metrics = {k: v.mean() for k, v in losses.items()}
     total = sum(metrics.values())
-    total.backward()
-    state.apply_gradients()
+    with spans.span("sp3d.backward"):
+        total.backward()
+    with spans.span("sp3d.optimizer"):
+        state.apply_gradients()
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["loss"] = total.detach()
     return metrics
@@ -129,6 +133,7 @@ def make_supervised_train_step(model) -> Callable[[TrainState, AugBranch], Dict[
     update, and returns the metrics as ``make_ssv_train_step``'s do."""
     inner = inner_model(model)
 
+    @spans.span("sp3d.train_step")
     def train_step(state: TrainState, branch: AugBranch) -> Dict[str, torch.Tensor]:
         if state.model is not inner:
             raise ValueError("the train state belongs to another model")

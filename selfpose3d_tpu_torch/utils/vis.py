@@ -26,11 +26,13 @@ from selfpose3d_tpu_torch.data.skeleton import PANOPTIC_LIMBS
 from selfpose3d_tpu_torch.data.synthetic_dataset import draw_ring
 from selfpose3d_tpu_torch.geometry.cameras import CameraParams, project_points_with_trans
 from selfpose3d_tpu_torch.pseudo_labels.visualize import _PERSON_COLORS, draw_skeleton_2d
+from selfpose3d_tpu_torch.utils import spans
 from selfpose3d_tpu_torch.utils.image_io import imwrite, resize
 
 def _np(x) -> np.ndarray:
     """A tensor (any device, any float dtype) or array as a numpy array."""
     if isinstance(x, torch.Tensor):
+        spans.count("host_syncs.debug_read")
         x = x.detach().cpu()
         return (x.float() if x.is_floating_point() else x).numpy()
     return np.asarray(x)
@@ -222,6 +224,7 @@ def save_multiview_composite(
     K, J = pred.shape[:2]
 
     cam = branch.cam
+    spans.count("host_syncs.debug_read", len(dataclasses.fields(cam)) + 1)  # cam_b and trans
     cam_b = CameraParams(*(getattr(cam, f.name)[b : b + 1].detach().cpu().float()
                            for f in dataclasses.fields(cam)))
     kps = project_points_with_trans(

@@ -790,3 +790,89 @@ def test_ddp_world_size_1_step_equals_the_plain_step(cuda, tmp_path, bn_eval):
     assert ddp["launches"] == plain["launches"] == chip_smoke.ssv_step_launches(cfg)
     bad = {k: v for k, v in check.failures(check.compare(ddp, plain), bn_eval).items() if v}
     assert not bad, bad
+
+
+# ------------------------------------------ the port's spans and host syncs
+
+SYNC_WARNING = "called a synchronizing CUDA operation"
+# the benchmark's paths at its full widths, and the masked BatchNorm path small
+SYNC_PATHS = [("ssv_infer", True), ("supervised_infer", True), ("ssv_train", True),
+              ("ssv_train_masked", False)]
+
+
+@pytest.fixture(scope="module")
+def span_paths():
+    """(model, call) of each path of tests/test_torch_spans.py on the card,
+    built once and warmed up by one call."""
+    from test_torch_spans import path_call  # tests/ is on the path of its modules
+
+    built = {}
+
+    def get(path, full):
+        if (path, full) not in built:
+            torch.manual_seed(0)
+            model, call = path_call(path, "cuda", full)
+            call()
+            torch.cuda.synchronize()
+            built[(path, full)] = call
+        return built[(path, full)]
+
+    yield get
+    built.clear()
+    torch.cuda.empty_cache()
+
+
+def _profiled_call(call, sync_debug):
+    """One call while a device-only profiler records its spans -> (the
+    summary's one root, the sync warnings PyTorch raised inside the call
+    with ``sync_debug``)."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from selfpose3d_tpu_torch.utils import spans
+
+    spans.reset()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if sync_debug:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                call()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    summary = spans.summary()
+    (root,) = summary["roots"]
+    return root, summary, [w for w in caught if SYNC_WARNING in str(w.message)]
+
+
+@pytest.mark.parametrize("path, full", SYNC_PATHS, ids=[p for p, _ in SYNC_PATHS])
+def test_host_syncs_count_every_sync_of_a_call(cuda, span_paths, path, full):
+    """The warnings of PyTorch's sync debug mode inside one call equal the
+    call's ``host_syncs`` counters' change: the counters miss no sync."""
+    from collections import Counter
+
+    root, _, syncs = _profiled_call(span_paths(path, full), sync_debug=True)
+    counted = {k: v for k, v in root["counts"].items() if k.startswith("host_syncs.")}
+    where = Counter(f"{w.filename}:{w.lineno}" for w in syncs)
+    print(json.dumps({"path": path, "warnings": len(syncs), "counted": counted,
+                      "where": dict(where)}))
+    assert len(syncs) == sum(counted.values()), (dict(where), counted)
+
+
+@pytest.mark.parametrize("path", ["ssv_infer", "supervised_infer", "ssv_train"])
+def test_stage_spans_cover_the_call_on_the_device(cuda, span_paths, path):
+    """At full width the stages' device ms (the root span's children) cover
+    at least 90 % of the call's."""
+    root, summary, _ = _profiled_call(span_paths(path, True), sync_debug=False)
+    from selfpose3d_tpu_torch.utils import spans
+
+    recs = spans.records()
+    stages = sum(r["device_ms"] for r in recs if r["parent"] == root["id"])
+    print(json.dumps({"path": path, "call_device_ms": root["device_ms"],
+                      "stages_device_ms": stages,
+                      "spans": {k: round(v["device_ms"], 3) for k, v in summary["spans"].items()}}))
+    assert summary["device_clock"] == "cuda_events"
+    assert stages >= 0.9 * root["device_ms"], (stages, root["device_ms"])

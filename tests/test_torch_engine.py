@@ -11,6 +11,7 @@ of their largest entry) and metrics (recalls equal, MPJPE within 1 mm).
 A resumed run equals the uninterrupted one bit for bit.
 """
 
+import json
 import logging
 import os
 import types
@@ -81,8 +82,18 @@ def test_train_epoch_ssv_steps(dispatch, frames, steps, tmp_path, monkeypatch):
     train_epoch_ssv(cfg, model, state, _dataset(cfg, "train", frames), epoch=0, writer=writer,
                     meters_out=meters)
     assert meters["steps"] == steps and state.step == steps  # batch 2, drop_last
-    # the SP3D_PROFILE trace covers step 2 of epoch 0
+    assert meters["host_syncs"]["host_syncs.log_read"] == steps  # PRINT_FREQ 1
+    # the SP3D_PROFILE trace covers step 2 of epoch 0, and so does the
+    # summary of the spans recorded in it
     assert (tmp_path / "profile" / "trace.json").exists() == (steps > 2)
+    assert (tmp_path / "profile" / "spans.json").exists() == (steps > 2)
+    if steps > 2:
+        summary = json.loads((tmp_path / "profile" / "spans.json").read_text())
+        calls = [r["name"] for r in summary["roots"] if r["name"] != "sp3d.loader_wait"]
+        assert calls == ["sp3d.train_step"]
+        assert summary["spans"]["sp3d.backward"]["count"] == 1
+        # the loop's own read, outside every call, is reported too
+        assert summary["counts_since_reset"]["host_syncs.log_read"] == 1
     assert set(writer.series) == {f"train/{k}" for k in SSV_TERMS}
     for k, v in writer.series.items():
         assert len(v) == steps and np.isfinite(v).all(), k
@@ -117,6 +128,8 @@ def test_train_epoch_supervised_steps():
     metrics = {}  # the supervised model validates through its forward
     precision = validate_3d(cfg, model, _dataset(cfg, "validation", 3), metrics_out=metrics)
     assert precision == float(np.mean(metrics["aps"])) and "recall500_root" in metrics
+    batches = -(-3 // cfg.TEST.BATCH_SIZE)
+    assert metrics["host_syncs"]["host_syncs.validate_read"] == 2 * batches
 
 
 def test_debug_dumps_raise(tmp_path):
