@@ -114,7 +114,8 @@ def main() -> int:
     model = get_model(cfg, device="cuda", seed=0)
     br, _ = make_synthetic_branch(cfg, batch_size=args.batch, num_person=3, seed=0,
                                   with_images=True, device="cuda")
-    model.do_inference(br)
+    for _ in range(2):  # eager, then the stages' CUDA graphs captured (utils/graphs.py)
+        model.do_inference(br)
     torch.cuda.synchronize()
 
     t0 = time.perf_counter()

@@ -1,10 +1,13 @@
-"""Device selection shared by the port's entry points and kernel wrappers."""
+"""Device selection shared by the port's entry points and kernel wrappers,
+and the device copies of host constants."""
 
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Dict, Iterable, Sequence
 
 import torch
+
+_CONSTANTS: Dict[tuple, torch.Tensor] = {}
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -36,3 +39,18 @@ def kernel_route(tensors: Iterable[torch.Tensor]) -> bool:
         if not t.is_contiguous():
             raise ValueError("the CUDA kernels take contiguous tensors")
     return True
+
+
+def device_constant(values: Sequence[float], dtype: torch.dtype, device) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype, device=device)``, made once per
+    values, dtype and device and then shared: its blocking copy from the
+    host happens at the first call alone, so later calls (and the CUDA
+    graphs captured from them, ``utils/graphs.py``) make the host wait for
+    nothing. The caller never writes into it."""
+    values = [float(v) for v in values]
+    key = (tuple(v.hex() for v in values), dtype, torch.device(device))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        with torch.inference_mode(False):  # usable outside inference mode too
+            t = _CONSTANTS[key] = torch.tensor(values, dtype=dtype, device=device)
+    return t

@@ -47,7 +47,7 @@ from selfpose3d_tpu_torch.ops.gaussian import render_gaussian_heatmaps
 from selfpose3d_tpu_torch.ops.matching import masked_assignment_cost
 from selfpose3d_tpu_torch.ops.proposal import match_proposals_to_gt
 from selfpose3d_tpu_torch.parallel import mesh
-from selfpose3d_tpu_torch.utils import spans
+from selfpose3d_tpu_torch.utils import graphs, spans
 
 
 def _mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -139,13 +139,15 @@ def backbone_heatmaps(backbone: nn.Module, branch: AugBranch, fold: bool) -> tor
     only one view's activations are live at a time."""
     if branch.views is None:
         return branch.input_heatmaps
+    return graphs.run("backbone", backbone, _views_heatmaps, branch.views, fold)
+
+
+def _views_heatmaps(backbone: nn.Module, views: torch.Tensor, fold: bool) -> torch.Tensor:
     if fold:
-        B, V = branch.views.shape[:2]
-        hm = backbone(branch.views.flatten(0, 1))
+        B, V = views.shape[:2]
+        hm = backbone(views.flatten(0, 1))
         return hm.reshape(B, V, *hm.shape[1:])
-    return torch.stack(
-        [backbone(branch.views[:, v]) for v in range(branch.views.shape[1])], dim=1
-    )
+    return torch.stack([backbone(views[:, v]) for v in range(views.shape[1])], dim=1)
 
 
 def gt_grid_centers(branch: AugBranch, K: int) -> torch.Tensor:
@@ -210,9 +212,18 @@ class MultiPersonPoseNetSSV(nn.Module):
         EVAL_ROOTNET_ONLY, where PoseNet does not run), pred[..., 3:] each
         candidate's (flag, score); the candidates are the GT roots under
         USE_GT or TRAIN_ONLY_2D. Always runs with the running BatchNorm
-        statistics: it puts the model in eval mode.
+        statistics: it puts the model in eval mode. On CUDA the backbone,
+        RootNet and PoseNet replay CUDA graphs from a signature's third call
+        on (``utils/graphs.py``); the attention pass stays eager.
         """
-        self.eval()
+        graphs.set_training(self, False)
+        with graphs.entry(self):
+            pred, heatmaps, grid_centers = self._infer(branch)
+        if visualize_attn:
+            return pred, heatmaps, grid_centers, self.attns(branch)
+        return pred, heatmaps, grid_centers
+
+    def _infer(self, branch: AugBranch):
         c = self.cfg
         heatmaps = self.heatmaps(branch)
         B = heatmaps.shape[0]
@@ -231,8 +242,6 @@ class MultiPersonPoseNetSSV(nn.Module):
                 heatmaps, branch.cam, branch.trans, branch.orig_wh, grid_centers
             )
             pred[..., 0:3] = poses
-        if visualize_attn:
-            return pred, heatmaps, grid_centers, self.attns(branch)
         return pred, heatmaps, grid_centers
 
     def _l1_matching_loss(
@@ -302,13 +311,13 @@ class MultiPersonPoseNetSSV(nn.Module):
         batch statistics only where the JAX package passes ``train=True``."""
         c = self.cfg
         if c.BACKBONE_MODEL:
-            self.backbone.train(net_train and c.NETWORK.TRAIN_BACKBONE)
+            graphs.set_training(self.backbone, net_train and c.NETWORK.TRAIN_BACKBONE)
         if c.WITH_ATTN:
-            self.attn.train(net_train)
+            graphs.set_training(self.attn, net_train)
         if hasattr(self, "root_net"):
-            self.root_net.train(net_train and not c.NETWORK.FREEZE_ROOTNET)
+            graphs.set_training(self.root_net, net_train and not c.NETWORK.FREEZE_ROOTNET)
         if hasattr(self, "pose_net"):
-            self.pose_net.train(net_train)
+            graphs.set_training(self.pose_net, net_train)
 
     def ssv_losses(
         self,
@@ -505,10 +514,10 @@ class MultiPersonPoseNet(nn.Module):
     def _set_modes(self, train: bool) -> None:
         c = self.cfg
         if c.BACKBONE_MODEL:
-            self.backbone.train(train and c.NETWORK.TRAIN_BACKBONE)
+            graphs.set_training(self.backbone, train and c.NETWORK.TRAIN_BACKBONE)
         for net in ("root_net", "pose_net"):
             if hasattr(self, net):
-                getattr(self, net).train(train)
+                graphs.set_training(getattr(self, net), train)
 
     def forward(self, branch: AugBranch, train: bool = False):
         """-> (pred (B, K, J, 5) or None, heatmaps (B, V, H, W, J),
@@ -526,11 +535,13 @@ class MultiPersonPoseNet(nn.Module):
         candidates. Sets the sub-networks' train/eval modes (the backbone
         trains only under NETWORK.TRAIN_BACKBONE); autograd stays as the
         caller has it. A call with ``train=False`` is the span
-        ``sp3d.infer``; in training the train step's span holds the call.
+        ``sp3d.infer``, and under ``no_grad`` on CUDA its stages replay CUDA
+        graphs as ``do_inference``'s do; in training the train step's span
+        holds the call.
         """
         if train:
             return self._forward(branch, True)
-        with spans.span("sp3d.infer"):
+        with spans.span("sp3d.infer"), graphs.entry(self):
             return self._forward(branch, False)
 
     def _forward(self, branch: AugBranch, train: bool):

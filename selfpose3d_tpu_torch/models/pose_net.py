@@ -10,7 +10,9 @@ One rule picks the sampler: where a gradient must reach the heatmaps
 ``sample_view``, whose backward is the adjoint kernel; otherwise one
 ``sample_views_mean`` launch samples all views. Train mode
 (``module.training``) restricts the BatchNorm statistics to the valid
-candidates (of every rank's batch, across ranks).
+candidates (of every rank's batch, across ranks). Inside an inference
+entry on CUDA, ``_run`` (after the bucket's read) replays a CUDA graph, one
+a bucket (``utils/graphs.py``).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from selfpose3d_tpu_torch.models.v2v_net import V2VNet
 from selfpose3d_tpu_torch.ops.softargmax import soft_argmax_ndhwc
 from selfpose3d_tpu_torch.ops.unproject import sample_cubes
 from selfpose3d_tpu_torch.parallel import mesh
-from selfpose3d_tpu_torch.utils import spans
+from selfpose3d_tpu_torch.utils import graphs, spans
 
 
 class PoseNet(nn.Module):
@@ -86,7 +88,8 @@ class PoseNet(nn.Module):
         score-sorted proposals itself)."""
         K = grid_centers.shape[1]
         k = self.bucket(grid_centers) if bucketed else K
-        pred = self._run(heatmaps, cam, trans, orig_wh, grid_centers[:, :k], hflip)
+        pred = graphs.run("posenet", self, PoseNet._run, heatmaps, cam, trans, orig_wh,
+                          grid_centers[:, :k], hflip)
         pred = F.pad(pred, (0, 0, 0, 0, 0, K - k))
         return pred, (grid_centers[..., 3] >= 0).to(torch.float32)
 

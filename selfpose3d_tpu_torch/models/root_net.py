@@ -5,7 +5,9 @@ kernel launch per view), V2VNet, then 3D max-pool NMS + top-K proposals.
 The SSV variant also trains on synthetically generated 3D roots rendered
 to per-view 2D Gaussians (``train_synth``, ref:
 cuboid_proposal_net_soft.py:151-241). BatchNorm follows ``module.training``.
-``SupervisedProposal`` gives the supervised baseline's GT-matched flags.
+Inside an inference entry on CUDA, ``forward`` replays a CUDA graph of its
+body (``utils/graphs.py``). ``SupervisedProposal`` gives the supervised
+baseline's GT-matched flags.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 
+from selfpose3d_tpu_torch.device import device_constant
 from selfpose3d_tpu_torch.geometry.cameras import CameraParams, project_points_with_trans
 from selfpose3d_tpu_torch.geometry.grid import compute_grid, grid_1d_axes
 from selfpose3d_tpu_torch.models.v2v_net import V2VNet
@@ -31,7 +34,7 @@ from selfpose3d_tpu_torch.ops.proposal import (
 )
 from selfpose3d_tpu_torch.ops.unproject import unproject_heatmaps
 from selfpose3d_tpu_torch.parallel import mesh
-from selfpose3d_tpu_torch.utils import spans
+from selfpose3d_tpu_torch.utils import graphs, spans
 
 
 class RootNet(nn.Module):
@@ -64,12 +67,8 @@ class RootNet(nn.Module):
         self.v2v_net = V2VNet(in_channels, 1, dtype=dtype)
 
     def unproject(self, heatmaps, cam, trans, orig_wh, hflip=None) -> torch.Tensor:
-        spans.count("host_syncs.rootnet_center")  # a blocking copy of a host list
-        grid = compute_grid(
-            self.space_size,
-            torch.tensor(self.space_center, dtype=torch.float32, device=heatmaps.device),
-            self.cube_size,
-        )
+        center = device_constant(self.space_center, torch.float32, heatmaps.device)
+        grid = compute_grid(self.space_size, center, self.cube_size)
         return unproject_heatmaps(
             heatmaps, grid, cam, trans, self.image_wh, orig_wh, self.cube_size, hflip=hflip
         )
@@ -83,6 +82,9 @@ class RootNet(nn.Module):
         orig_wh: torch.Tensor,
         hflip: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return graphs.run("rootnet", self, RootNet._forward, heatmaps, cam, trans, orig_wh, hflip)
+
+    def _forward(self, heatmaps, cam, trans, orig_wh, hflip):
         cubes = self.unproject(heatmaps, cam, trans, orig_wh, hflip)
         root_cubes = self.v2v_net(cubes)[..., 0]  # (B, X, Y, Z)
         grid_centers = proposals_soft(

@@ -8,6 +8,7 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from selfpose3d_tpu_torch.device import device_constant
 from selfpose3d_tpu_torch.utils import spans
 
 
@@ -56,11 +57,8 @@ def voxel_index_to_world(
     cube_size: Sequence[int],
 ) -> torch.Tensor:
     """Voxel indices -> world mm (ref: cuboid_proposal_net_soft.py:46-52)."""
-    kw = dict(dtype=torch.float32, device=index.device)
-    spans.count("host_syncs.voxel_to_world", 3)  # three blocking copies of host lists
-    cube = torch.tensor([float(s) for s in cube_size], **kw)
-    size = torch.tensor([float(s) for s in space_size], **kw)
-    center = torch.tensor([float(s) for s in space_center], **kw)
+    cube, size, center = (device_constant(v, torch.float32, index.device)
+                          for v in (cube_size, space_size, space_center))
     return index.to(torch.float32) / (cube - 1.0) * size + center - size / 2.0
 
 

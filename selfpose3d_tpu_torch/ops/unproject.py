@@ -17,10 +17,10 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from selfpose3d_tpu_torch.device import device_constant
 from selfpose3d_tpu_torch.geometry.cameras import CameraParams, affine_points, project_points
 from selfpose3d_tpu_torch.ops.gaussian import clip01
 from selfpose3d_tpu_torch.ops.slicewarp import sample_view, sample_views_mean
-from selfpose3d_tpu_torch.utils import spans
 
 
 def compute_sample_grid(
@@ -65,9 +65,8 @@ def compute_sample_grid(
         x = xy[..., 0]
         xy = torch.stack([flip * (img_w - x) + (1.0 - flip) * x, xy[..., 1]], dim=-1)
 
-    spans.count("host_syncs.sample_grid", 2)  # two blocking copies of host lists
-    scale_hm = torch.tensor([w / img_w, h / img_h], dtype=xy.dtype, device=xy.device)
-    denom = torch.tensor([w - 1.0, h - 1.0], dtype=xy.dtype, device=xy.device)
+    scale_hm = device_constant([w / img_w, h / img_h], xy.dtype, xy.device)
+    denom = device_constant([w - 1.0, h - 1.0], xy.dtype, xy.device)
     sample_grid = torch.clamp((xy * scale_hm) / denom * 2.0 - 1.0, -1.1, 1.1)
     return sample_grid, bounding
 

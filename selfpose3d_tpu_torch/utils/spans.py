@@ -15,11 +15,15 @@ and makes no range, no event and no object. A recorded span
   change of every counter over it.
 
 ``meter(name)`` is a span that also times itself on the host clock when
-nothing records: the loops' meters read it.
+nothing records: the loops' meters read it. No span records inside
+``muted()``: ``utils/graphs.py`` captures a stage's CUDA graph there, where
+a range and its timing events would become part of the graph.
 
 ``count(name, n)`` adds to a counter, recording or not. ``register(prefix,
-counts)`` makes a dict of counts kept elsewhere (``ops/slicewarp.py:LAUNCHES``)
-part of the counters, under ``prefix``. The counters ``host_syncs.<site>``
+counts)`` makes a dict of counts kept elsewhere (``ops/slicewarp.py:LAUNCHES``,
+``utils/graphs.py:COUNTS``) part of the counters, under ``prefix``;
+``add(deltas)`` adds to any counter by its full name (a graph's replay
+repeats the changes its capture made). The counters ``host_syncs.<site>``
 count every place where the port makes the host wait for the device: a
 read of a device value (``int()``, ``bool()``, ``.tolist()``, ``.cpu()``,
 indexing by a ``nonzero``) or a blocking copy of host values to the
@@ -41,6 +45,7 @@ terms after PoseNet) holding ``sp3d.matching``, ``sp3d.backward``,
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
 import threading
@@ -62,6 +67,7 @@ _since: Dict[str, int] = {}  # the counters at the last reset()
 _ids = itertools.count(1)
 _local = threading.local()  # each thread's stack of open records
 _spans: Dict[str, "_Span"] = {}
+_muted = 0  # > 0 inside muted()
 
 
 class _Record:
@@ -106,7 +112,7 @@ def _close(stack: list) -> None:
     rec.range.__exit__(None, None, None)
     rec.owner = rec.range = None
     if rec.counts is not None:
-        rec.counts = _changes(rec.counts)
+        rec.counts = changes(rec.counts)
     if len(_records) < CAPACITY:
         _records.append(rec)
     else:
@@ -122,7 +128,7 @@ class _Span:
         self.name = name
 
     def __enter__(self) -> "_Span":
-        if _recording():
+        if _recording() and not _muted:
             _open(self)
         return self
 
@@ -175,6 +181,29 @@ def count(name: str, n: int = 1) -> None:
     _counts[name] = _counts.get(name, 0) + n
 
 
+def add(deltas: Dict[str, int]) -> None:
+    """Add each ``deltas[name]`` to the counter ``name``, a registered one
+    (``prefix + key``) too."""
+    for name, n in deltas.items():
+        for prefix, d in _sources.items():
+            if prefix and name.startswith(prefix) and name[len(prefix):] in d:
+                d[name[len(prefix):]] += n
+                break
+        else:
+            count(name, n)
+
+
+@contextlib.contextmanager
+def muted():
+    """No span records inside (a capture of a CUDA graph)."""
+    global _muted
+    _muted += 1
+    try:
+        yield
+    finally:
+        _muted -= 1
+
+
 def register(prefix: str, counts: Dict[str, int]) -> None:
     """Read ``counts`` (kept up to date by its owner) as counters named
     ``prefix + key``."""
@@ -195,7 +224,8 @@ def reset() -> None:
     _since = counters()
 
 
-def _changes(before: Dict[str, int]) -> Dict[str, int]:
+def changes(before: Dict[str, int]) -> Dict[str, int]:
+    """Every counter's change since ``before`` (a ``counters()``), where it changed."""
     return {k: v - before.get(k, 0) for k, v in counters().items() if v != before.get(k, 0)}
 
 
@@ -241,7 +271,7 @@ def summary() -> dict:
     roots = [{"name": r.name, "id": r.id, "host_ms": r.host_ms, "device_ms": r.device_ms,
               "counts": dict(r.counts)} for r in recs if not r.parent]
     return {"device_clock": "cuda_events" if cuda else "host", "spans": spans, "roots": roots,
-            "counts_since_reset": _changes(_since), "dropped": _dropped}
+            "counts_since_reset": changes(_since), "dropped": _dropped}
 
 
 def records() -> List[dict]:

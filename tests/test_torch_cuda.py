@@ -803,7 +803,9 @@ SYNC_PATHS = [("ssv_infer", True), ("supervised_infer", True), ("ssv_train", Tru
 @pytest.fixture(scope="module")
 def span_paths():
     """(model, call) of each path of tests/test_torch_spans.py on the card,
-    built once and warmed up by one call."""
+    built once and warmed up by three calls: an inference path's third call
+    replays its stages' CUDA graphs (the first runs eager, the second
+    captures), as every later one does."""
     from test_torch_spans import path_call  # tests/ is on the path of its modules
 
     built = {}
@@ -812,7 +814,8 @@ def span_paths():
         if (path, full) not in built:
             torch.manual_seed(0)
             model, call = path_call(path, "cuda", full)
-            call()
+            for _ in range(3):
+                call()
             torch.cuda.synchronize()
             built[(path, full)] = call
         return built[(path, full)]
@@ -860,6 +863,11 @@ def test_host_syncs_count_every_sync_of_a_call(cuda, span_paths, path, full):
     print(json.dumps({"path": path, "warnings": len(syncs), "counted": counted,
                       "where": dict(where)}))
     assert len(syncs) == sum(counted.values()), (dict(where), counted)
+    if path.endswith("_infer"):
+        # the stages replay their graphs; the host waits at most for the
+        # candidate bucket's read, where the configuration has buckets
+        assert set(counted) <= {"host_syncs.posenet_bucket"}, counted
+        assert _replays(root["counts"]) == 3, root["counts"]
 
 
 @pytest.mark.parametrize("path", ["ssv_infer", "supervised_infer", "ssv_train"])
@@ -876,3 +884,123 @@ def test_stage_spans_cover_the_call_on_the_device(cuda, span_paths, path):
                       "spans": {k: round(v["device_ms"], 3) for k, v in summary["spans"].items()}}))
     assert summary["device_clock"] == "cuda_events"
     assert stages >= 0.9 * root["device_ms"], (stages, root["device_ms"])
+    assert _replays(root["counts"]) == (3 if path.endswith("_infer") else 0), root["counts"]
+
+
+def _replays(counts: dict) -> int:
+    return sum(v for k, v in counts.items() if k.startswith("graphs.replays."))
+
+
+# ------------------------------------------ the inference stages' CUDA graphs
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().contiguous().view(torch.uint8)
+
+
+def _same_bits(got, want) -> bool:
+    return len(got) == len(want) and all(
+        a.dtype == b.dtype and a.shape == b.shape and torch.equal(_bits(a), _bits(b))
+        for a, b in zip(got, want))
+
+
+def _graph_case(cuda, monkeypatch, path: str, batch: int):
+    """A small float32 model of ``path`` on the card (candidate buckets on),
+    three distinct scenes at ``batch``, and its inference call graphed
+    (``infer``) and eager (``eager``: every stage body called directly).
+    cuDNN runs its deterministic algorithms: with its default ones two
+    eager calls of one input already differ in the last bits."""
+    from test_torch_spans import path_cfg
+
+    from selfpose3d_tpu_torch.data.synthetic import make_synthetic_branch
+    from selfpose3d_tpu_torch.models import get_model
+    from selfpose3d_tpu_torch.utils import graphs
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg = path_cfg(path)
+    torch.manual_seed(0)
+    model = get_model(cfg, device=cuda, seed=0)
+    scenes = [make_synthetic_branch(cfg, batch_size=batch, num_person=3, seed=s,
+                                    with_images=True, device=cuda)[0] for s in range(3)]
+
+    def infer(b):
+        with torch.no_grad():
+            return model.do_inference(b) if path == "ssv_infer" else model(b, train=False)[:3]
+
+    def eager(b):
+        with monkeypatch.context() as m:
+            m.setattr(graphs, "run", lambda stage, module, fn, *args: fn(module, *args))
+            return infer(b)
+
+    return model, scenes, infer, eager
+
+
+def _counted(call):
+    """-> (call's outputs, its counters' changes)."""
+    from selfpose3d_tpu_torch.utils import spans
+
+    before = spans.counters()
+    out = call()
+    torch.cuda.synchronize()
+    return out, spans.changes(before)
+
+
+def _family(changes: dict, prefix: str) -> int:
+    return sum(v for k, v in changes.items() if k.startswith(prefix))
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("path", ["ssv_infer", "supervised_infer"])
+def test_graphed_inference_equals_eager_bit_for_bit(cuda, monkeypatch, path, batch):
+    """Six calls over three distinct scenes in turn: the first runs eager,
+    the second captures the three stages, every later one replays them;
+    each call's outputs equal the eager call's bit for bit, its launch
+    counters too, and an earlier call's outputs stay as they were."""
+    model, scenes, infer, eager = _graph_case(cuda, monkeypatch, path, batch)
+    want, want_launches = zip(*(_counted(lambda b=b: eager(b)) for b in scenes))
+    assert all(_same_bits(eager(b), w) for b, w in zip(scenes, want))  # eager repeats itself
+    got = []
+    for i in range(6):
+        out, changes = _counted(lambda: infer(scenes[i % 3]))
+        got.append(out)
+        assert _same_bits(out, want[i % 3]), i
+        assert _family(changes, "graphs.captures.") == (3 if i == 1 else 0), (i, changes)
+        assert _family(changes, "graphs.replays.") == (0 if i == 0 else 3), (i, changes)
+        launches = {k: v for k, v in changes.items() if k.startswith("launches.")}
+        assert launches == {k: v for k, v in want_launches[i % 3].items()
+                            if k.startswith("launches.")}, (i, launches)
+    for i, out in enumerate(got):  # later replays left the earlier outputs alone
+        assert _same_bits(out, want[i % 3]), i
+    if path == "supervised_infer":  # with autograd on the stages stay eager
+        with torch.enable_grad():
+            out, changes = _counted(lambda: model(scenes[0], train=False)[:3])
+        assert _family(changes, "graphs.") == 0 and _same_bits(out[1], want[0][1])
+
+
+def test_replays_follow_weights_changed_in_place(cuda, monkeypatch):
+    """An in-place Adam step and ``load_state_dict`` change the weights a
+    replay reads, with no new capture; a state dict assigned (new storages)
+    is a new signature: eager once, then captured again."""
+    from selfpose3d_tpu_torch.models import get_model
+
+    model, scenes, infer, eager = _graph_case(cuda, monkeypatch, "ssv_infer", 1)
+    for _ in range(3):
+        first = infer(scenes[0])
+    g = torch.Generator(device=cuda).manual_seed(5)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    for p in model.parameters():
+        p.grad = torch.randn(p.shape, generator=g, device=cuda)
+    opt.step()
+    out, changes = _counted(lambda: infer(scenes[0]))
+    assert _family(changes, "graphs.captures.") == 0 and _family(changes, "graphs.replays.") == 3
+    assert _same_bits(out, eager(scenes[0])) and not _same_bits(out, first)
+    other = get_model(model.cfg, device=cuda, seed=1).state_dict()
+    model.load_state_dict(other)
+    out, changes = _counted(lambda: infer(scenes[1]))
+    assert _family(changes, "graphs.captures.") == 0 and _family(changes, "graphs.replays.") == 3
+    assert _same_bits(out, eager(scenes[1]))
+    model.load_state_dict({k: v.clone() for k, v in other.items()}, assign=True)
+    for captures, replays in ((0, 0), (3, 3), (0, 3)):
+        out, changes = _counted(lambda: infer(scenes[2]))
+        assert (_family(changes, "graphs.captures."), _family(changes, "graphs.replays.")) == (
+            captures, replays), changes
+        assert _same_bits(out, eager(scenes[2]))

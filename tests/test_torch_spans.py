@@ -99,21 +99,21 @@ def path_call(path: str, device: str, full: bool = False):
 
 
 def expected_syncs(path: str, model) -> dict:
-    """The ``host_syncs`` sites a small path reaches, with their counts: a
-    RootNet call's centre (1) and sample grid (2) copies and its proposals'
-    three; PoseNet's sample grid (2) and, at inference, its bucket read;
-    in training PoseNet's two reads of the valid candidates, the synthetic
-    pass's six copies, each of the two L1 terms' norm (1), Hungarian (2)
-    and worst-term drop (3); under USE_GT no RootNet, and each of V2V's
-    BatchNorm layers indexes by the mask forward and backward."""
+    """The ``host_syncs`` sites a small path reaches, with their counts:
+    at inference PoseNet's bucket read alone (the host constants of the
+    sample grids, RootNet's centre and the proposals live on the device,
+    ``device.device_constant``); in training PoseNet's two reads of the
+    valid candidates, the synthetic pass's six copies, each of the two L1
+    terms' norm (1), Hungarian (2) and worst-term drop (3); under USE_GT no
+    RootNet, and each of V2V's BatchNorm layers indexes by the mask forward
+    and backward."""
     if path in ("ssv_infer", "supervised_infer"):
-        return {"rootnet_center": 1, "sample_grid": 4, "voxel_to_world": 3, "posenet_bucket": 1}
+        return {"posenet_bucket": 1}
     l1 = {"posenet_bn_mask": 2, "l1_norm": 2, "hungarian": 4, "l1_attn": 6}
     if path == "ssv_train":
-        return {"rootnet_center": 2, "sample_grid": 6, "voxel_to_world": 3, "rootnet_synth": 6,
-                **l1}
+        return {"rootnet_synth": 6, **l1}
     bns = sum(isinstance(m, BatchNorm3d) for m in model.pose_net.v2v_net.modules())
-    return {"sample_grid": 2, "bn_mask": 2 * bns, **l1}
+    return {"bn_mask": 2 * bns, **l1}
 
 
 TREES = {
@@ -252,3 +252,4 @@ def test_each_path_records_its_span_tree_and_counts_its_syncs(path):
     assert syncs == expected_syncs(path, model)
     delta = {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
     assert delta == summary_root["counts"]  # the root saw every change of the call
+    assert not any(k.startswith("graphs.") for k in delta)  # no CUDA graph on the CPU
