@@ -20,6 +20,13 @@ def _tup(x) -> Tuple:
     return x
 
 
+def _nested(x):
+    """A free-form section (``MODEL_EXTRA``): dicts kept, lists as tuples."""
+    if isinstance(x, dict):
+        return {k: _nested(v) for k, v in x.items()}
+    return _tup(x)
+
+
 @dataclass
 class NetworkConfig:
     PRETRAINED: str = "models/pytorch/imagenet/resnet50-19c8e357.pth"
@@ -266,7 +273,8 @@ class Config:
     # device / parallelism (TPU-native additions; absent keys in reference YAMLs)
     MESH_DATA_AXIS: str = "data"
     DTYPE: str = "bfloat16"  # compute dtype for conv stacks
-    # keys accepted but unused (reference HigherHRNet leftovers)
+    # MODEL.EXTRA of a top-down pose network (``models/pose_hrnet.py``: the
+    # stage dicts STAGE2-4 and FINAL_CONV_KERNEL), read as it is given
     MODEL_EXTRA: dict = field(default_factory=dict)
 
     # ------------------------------------------------------------------
@@ -274,7 +282,7 @@ class Config:
         return dataclasses.replace(self, **kw)
 
 
-_IGNORED_SECTIONS = {"MODEL_EXTRA", "CUDNN"}
+_IGNORED_SECTIONS = {"CUDNN"}
 
 
 def _apply_section(obj: Any, name: str, updates: dict) -> Any:
@@ -317,6 +325,8 @@ def load_config(path: Optional[str] = None, overrides: Optional[dict] = None) ->
         cur = getattr(cfg, k)
         if dataclasses.is_dataclass(cur) and isinstance(v, dict):
             kw[k] = _apply_section(cur, k, v)
+        elif isinstance(cur, dict):
+            kw[k] = _nested(v)
         else:
             kw[k] = _tup(v)
     return dataclasses.replace(cfg, **kw)

@@ -9,6 +9,7 @@ import torch.nn as nn
 
 from selfpose3d_tpu_torch.device import resolve_device
 from selfpose3d_tpu_torch.models.multi_person import MultiPersonPoseNet, MultiPersonPoseNetSSV
+from selfpose3d_tpu_torch.models.pose_hrnet import PoseHighResolutionNet
 from selfpose3d_tpu_torch.models.pose_net import PoseNet
 from selfpose3d_tpu_torch.models.pose_resnet import PoseResAttnNet, PoseResNet
 from selfpose3d_tpu_torch.models.root_net import RootNet, SupervisedProposal
@@ -17,6 +18,7 @@ from selfpose3d_tpu_torch.models.v2v_net import V2VNet
 _REGISTRY = {
     "multi_person_posenet": MultiPersonPoseNet,
     "multi_person_posenet_ssv": MultiPersonPoseNetSSV,
+    "pose_hrnet": PoseHighResolutionNet.from_config,  # s4's top-down model
 }
 
 
@@ -25,7 +27,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Random init drawn from ``generator`` (on the CPU), with the JAX
     package's scales: lecun-normal backbone convs; normal(0, 0.001) for the
     backbone's deconvs and final layer and every V2V conv (ref:
-    pose_resnet.py:228-248, v2v_net.py:135-144); zero biases; identity BN."""
+    pose_resnet.py:228-248, v2v_net.py:135-144) and every HRNet conv (ref:
+    HRNet's pose_hrnet.py:472-490); zero biases; identity BN."""
 
     lecun = {
         id(sub)
@@ -72,6 +75,7 @@ def get_model(cfg, device="cuda", dtype=None, seed: int = 0) -> nn.Module:
 __all__ = [
     "MultiPersonPoseNet",
     "MultiPersonPoseNetSSV",
+    "PoseHighResolutionNet",
     "PoseNet",
     "PoseResAttnNet",
     "PoseResNet",

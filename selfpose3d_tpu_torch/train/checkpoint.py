@@ -9,7 +9,8 @@ and the staged loading of tools/train_3d.py:150-185:
   * ``load_torch_stage``: a backbone, RootNet, PoseNet or the whole model
     from a reference checkpoint. The port keeps the reference's
     state-dict names, so this is a per-component ``load_state_dict``
-    after stripping ``module.``.
+    after stripping ``module.``;
+  * ``load_pose_hrnet``: s4's HRNet from the HRNet repository's file.
 """
 
 from __future__ import annotations
@@ -243,6 +244,19 @@ def load_torch_stage(model: nn.Module, torch_path: str, component: str,
             f"{torch_path}: nothing loaded for component '{component}': wrong file or "
             f"wrong key layout (first keys: {sorted(sd)[:5]})"
         )
+    return model
+
+
+def load_pose_hrnet(model: nn.Module, path: str) -> nn.Module:
+    """Load the HRNet repository's checkpoint of a top-down HRNet (a bare
+    state dict, as pose_hrnet_w48_384x288.pth; ``module.`` and a
+    ``state_dict`` entry taken off) into the port's ``PoseHighResolutionNet``
+    strictly: a missing or unexpected entry, or a shape that differs,
+    raises ``CheckpointKeyError``."""
+    sd = load_torch_checkpoint(path)
+    if any(k.startswith(("backbone.", "root_net.", "pose_net.", "attn.")) for k in sd):
+        raise CheckpointKeyError(f"{path}: a multi-view model's checkpoint, not a bare HRNet's")
+    _strict(model, sd, "", "pose_hrnet", path)
     return model
 
 

@@ -1,9 +1,10 @@
 """CUDA graphs of the inference call's stages.
 
 An inference entry (``MultiPersonPoseNetSSV.do_inference``, the supervised
-``MultiPersonPoseNet.forward(train=False)``) opens ``entry(model)``; inside
-it each stage body runs through ``run(stage, module, fn, *args)``: the
-backbone's heatmaps, ``RootNet.forward`` and ``PoseNet._run``. ``run``
+``MultiPersonPoseNet.forward(train=False)``, s4's ``topdown_keypoints``)
+opens ``entry(model)``; inside it each stage body runs through
+``run(stage, module, fn, *args)``: the backbone's heatmaps,
+``RootNet.forward`` and ``PoseNet._run``; s4's HRNet with its flip test. ``run``
 calls ``fn(module, *args)`` as it is unless every tensor of ``args`` is on
 CUDA, autograd is off, no stream is capturing and no submodule of
 ``module`` is in training mode. Then the call's signature decides:
@@ -52,7 +53,7 @@ import torch.nn as nn
 
 from selfpose3d_tpu_torch.utils import spans
 
-STAGES = ("backbone", "rootnet", "posenet")
+STAGES = ("backbone", "rootnet", "posenet", "hrnet")
 COUNTS: Dict[str, int] = {f"{k}.{s}": 0 for k in ("captures", "replays") for s in STAGES}
 spans.register("graphs.", COUNTS)
 

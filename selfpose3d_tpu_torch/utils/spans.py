@@ -36,11 +36,13 @@ sites outside every root (the loops' reads) are reported too.
 
 The stage names are fixed: the benchmark's per-layer metrics read them
 (``portbench/core/stages.py``). Roots: ``sp3d.infer`` (``do_inference``, the
-supervised ``forward(train=False)``), ``sp3d.train_step`` (both train steps).
-Stages: ``sp3d.backbone``, ``sp3d.attn``, ``sp3d.rootnet`` (each RootNet
-call) holding ``sp3d.proposals``, ``sp3d.posenet``, ``sp3d.losses`` (the
-terms after PoseNet) holding ``sp3d.matching``, ``sp3d.backward``,
-``sp3d.optimizer``. The loops: ``sp3d.loader_wait``, ``sp3d.debug_dump``.
+supervised ``forward(train=False)``, s4's ``topdown_keypoints``),
+``sp3d.train_step`` (both train steps). Stages: ``sp3d.backbone``,
+``sp3d.attn``, ``sp3d.rootnet`` (each RootNet call) holding
+``sp3d.proposals``, ``sp3d.posenet``, ``sp3d.losses`` (the terms after
+PoseNet) holding ``sp3d.matching``, ``sp3d.backward``, ``sp3d.optimizer``;
+s4's ``sp3d.crops`` (copies in, crops), ``sp3d.hrnet`` (the network and
+its flip test), ``sp3d.keypoints`` (decode, the copy out). The loops: ``sp3d.loader_wait``, ``sp3d.debug_dump``.
 """
 
 from __future__ import annotations

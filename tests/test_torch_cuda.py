@@ -1004,3 +1004,57 @@ def test_replays_follow_weights_changed_in_place(cuda, monkeypatch):
         assert (_family(changes, "graphs.captures."), _family(changes, "graphs.replays.")) == (
             captures, replays), changes
         assert _same_bits(out, eager(scenes[2]))
+
+
+# ------------------------------------------------- s4's top-down path (HRNet)
+
+def test_topdown_graphed_equals_eager_and_syncs_once(cuda, monkeypatch):
+    """``topdown_keypoints`` with a small HRNet on the card: the first call
+    runs eager, the second captures the network with its flip test, the
+    third replays it; each call's keypoints, crops and heatmaps equal the
+    eager call's bit for bit, no ``host_syncs`` counter moves, and PyTorch's
+    sync debug mode sees one sync a call, the keypoints' copy to the host.
+    The card's keypoints agree with the CPU's."""
+    import warnings
+
+    from test_torch_hrnet import SMALL_EXTRA, _seeded, _small_cfg
+
+    from portbench.reference import hrnet as ref_hrnet
+    from selfpose3d_tpu_torch.models import get_model
+    from selfpose3d_tpu_torch.pseudo_labels import inference
+    from selfpose3d_tpu_torch.utils import graphs
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    P = _seeded(ref_hrnet.param_spec(SMALL_EXTRA, 17))
+    model = get_model(_small_cfg(), device=cuda)
+    model.load_state_dict(P)
+    g = torch.Generator().manual_seed(2)
+    frames = torch.randint(0, 256, (2, 240, 320, 3), generator=g, dtype=torch.uint8).pin_memory()
+    boxes = torch.tensor([[20.0, 10.0, 60.0, 150.0], [200.0, 40.0, 70.0, 180.0],
+                          [-10.0, 100.0, 50.0, 90.0], [150.0, 5.0, 40.0, 60.0]]).pin_memory()
+    frame_of = torch.tensor([0, 0, 1, 1]).pin_memory()
+
+    def call():
+        return inference.topdown_keypoints(model, frames, boxes, frame_of, keep=True)
+
+    with monkeypatch.context() as m:
+        m.setattr(graphs, "run", lambda stage, module, fn, *args: fn(module, *args))
+        want = call()
+    for i in range(3):
+        out, changes = _counted(call)
+        assert _same_bits(out, want), i
+        assert _family(changes, "host_syncs.") == 0, changes
+        assert _family(changes, "graphs.replays.") == (0 if i == 0 else 1), (i, changes)
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [f"{w.filename}:{w.lineno}" for w in seen if SYNC_WARNING in str(w.message)]
+    assert len(syncs) == 1, syncs
+    cpu = get_model(_small_cfg(), device="cpu")
+    cpu.load_state_dict(P)
+    kp = inference.topdown_keypoints(cpu, frames, boxes, frame_of)
+    np.testing.assert_allclose(want[0].numpy()[..., 2], kp.numpy()[..., 2], rtol=1e-3, atol=1e-3)

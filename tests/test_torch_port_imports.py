@@ -19,7 +19,7 @@ REPO = os.path.dirname(PORT)
 NEVER = ("jax", "jaxlib", "flax", "selfpose3d_tpu")
 # top-level package -> the functions allowed to import it
 ONLY_IN = {"cv2": set(), "PIL": set(), "matplotlib": {"utils/vis.py:_plt"}}
-# optional model backends of the pseudo-label stages s2/s4 (as in the JAX package)
+# optional model backends of the pseudo-label stage s2 (as in the JAX package; s4 runs the port's HRNet)
 BACKENDS = {"detectron2", "mmpose", "torchvision"}
 
 
@@ -73,5 +73,4 @@ def test_import_statements_sit_where_they_are_allowed():
     for top, allowed in ONLY_IN.items():
         assert found.get(top, set()) == allowed, (top, found.get(top))
     assert {w for t in BACKENDS for w in found.get(t, ())} <= {
-        "pseudo_labels/inference.py:_default_detector",
-        "pseudo_labels/inference.py:_default_pose_model"}
+        "pseudo_labels/inference.py:_default_detector"}
