@@ -24,7 +24,9 @@ Phases, each printing one JSON line:
   2. main     flagship do_inference (ResNet-50, 5 x 960x512 views, 80x80x20
               root grid, 64^3 pose cubes, bf16, batch 8, random weights from
               a seed) on the synthetic scene: shapes, finite outputs, and
-              every kernel's launch count during that one call;
+              every kernel's launch count during that one call, each set
+              to 0 just before it (the epilogue's one a BatchNorm that is
+              not a skip branch's, the backbone's once a view);
   3. geometry the RootNet unprojection of rendered heatmaps lights the voxel
               nearest every person's root (> 0.5) and equals the CPU's plain
               version;
@@ -138,7 +140,14 @@ Phases, each printing one JSON line:
               its adjoint on a step-like cotangent over PoseNet's 16^3
               cubes for the 2-branch fold, each a launch a view;
               sample_views_mean on a validation batch's cubes), and
-              every sampler's launches on each path;
+              every sampler's launches on each path; then the
+              convolutions' BatchNorm epilogue (sp3d_conv_epilogue) at V2V's,
+              ResNet-50's and HRNet-W48's activations, V2V's in its three
+              forms there (the conv's bias with the residual, with a skip
+              conv's output through its bias and BatchNorm, with the
+              residual after the ReLU), its bits equal to its plain
+              version's, timed in place beside its bytes bound, its
+              launches those of phase main's call;
  13. microbench  the three measurement probes (selfpose3d_tpu_torch/
               microbench/: conv3, sw_variants, primitives) at their full
               shapes, each probe's measurement driven with its kernel's
@@ -191,7 +200,7 @@ from selfpose3d_tpu_torch.microbench import sw_variants as mb_sw  # noqa: E402
 from selfpose3d_tpu_torch.microbench.common import (  # noqa: E402
     card_line, cuda_ms, sm_clock_max_mhz)
 from selfpose3d_tpu_torch.mini_panoptic import image_inked, render_view, run_realdata  # noqa: E402
-from selfpose3d_tpu_torch.ops import build, slicewarp  # noqa: E402
+from selfpose3d_tpu_torch.ops import build, conv_epilogue, slicewarp  # noqa: E402
 from selfpose3d_tpu_torch.ops.unproject import compute_sample_grid, to_pixels  # noqa: E402
 from selfpose3d_tpu_torch.parallel import check as ddp_check  # noqa: E402
 from selfpose3d_tpu_torch.parallel import mesh  # noqa: E402
@@ -444,9 +453,11 @@ def phase_main():
 
     torch.cuda.reset_peak_memory_stats()
     slicewarp.reset_launches()
+    conv_epilogue.LAUNCHES["conv_epilogue"] = 0
     pred, hm, gc = model.do_inference(br)
     torch.cuda.synchronize()
     launches = dict(slicewarp.LAUNCHES)
+    launches["conv_epilogue"] = conv_epilogue.LAUNCHES["conv_epilogue"]
 
     assert pred.shape == (8, 10, 15, 5), pred.shape
     assert hm.shape == (8, 5, 128, 240, 15), hm.shape
@@ -455,6 +466,10 @@ def phase_main():
         assert torch.isfinite(t).all()
     assert launches["sample_view"] == 5, launches  # one per view (RootNet)
     assert launches["sample_views_mean"] == 1, launches  # one for all cubes (PoseNet)
+    # one epilogue a BatchNorm that is not a skip branch's, the backbone's once a view
+    want = br.views.shape[1] * _main_bns(model.backbone) + sum(
+        _main_bns(net) for net in (model.root_net, model.pose_net))
+    assert launches["conv_epilogue"] == want, (launches, want)
     emit({"phase": "main", "config": "flagship cam5 (ResNet-50, 5x960x512, 80x80x20, 64^3, bf16)",
           "batch": 8, "ms_per_batch": round(ms, 3), "frames_per_s": round(8e3 / ms, 3),
           "candidates_run": model.pose_net.bucket(gc),
@@ -462,6 +477,14 @@ def phase_main():
           "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2 ** 30, 3),
           "launches": launches})
     return model, launches, br, gc
+
+
+def _main_bns(net):
+    """The BatchNorms of ``net`` that are not a skip branch's (``downsample``,
+    ``skip_con``): in eval mode one epilogue launch each."""
+    return sum(isinstance(m, (BatchNorm2d, BatchNorm3d))
+               and not {"downsample", "skip_con"} & set(name.split("."))
+               for name, m in net.named_modules())
 
 
 def phase_geometry(model):
@@ -2106,6 +2129,65 @@ def phase_kernels(model, br, gc, launches, train_model, train_brs, train_launche
     return rows
 
 
+# the convolutions' BatchNorm epilogue at the main path's activations, in
+# the forms the path runs there (bf16, channels-last): V2V's 64^3 x 32 on
+# cell 1's 320 cubes, where a Res3DBlock's second conv adds its own bias and
+# the identity residual (skip_res1), the front Res3DBlock(16, 32) adds its
+# skip conv's output through that conv's bias and BatchNorm, and
+# decoder_upsample1 adds the skip after its ReLU; ResNet-50's layer-1
+# output on 160 views of 960x512 (a Bottleneck's last conv, the residual
+# before the ReLU); HRNet-W48's 48 channels at 96x72 on 320 crops (a
+# BasicBlock's second conv). name: (shape, conv bias, residual's affine,
+# residual after the ReLU)
+EPILOGUE_SHAPES = {"v2v_64": ((320, 32, 64, 64, 64), True, False, False),
+                   "v2v_64_skip": ((320, 32, 64, 64, 64), True, True, False),
+                   "v2v_64_post": ((320, 32, 64, 64, 64), True, False, True),
+                   "resnet50_layer1": ((160, 256, 128, 240), False, False, False),
+                   "hrnet_w48": ((320, 48, 96, 72), False, False, False)}
+
+
+def phase_kernels_epilogue(launches):
+    """sp3d_conv_epilogue at EPILOGUE_SHAPES against its plain version (equal
+    bits), timed in place beside its bound (read x and the residual, write
+    y) and the plain version; its row for the kernels line, with
+    ``launches`` those of phase main's call."""
+    variants = {}
+    for name, (shape, bias, skip, after) in EPILOGUE_SHAPES.items():
+        g = torch.Generator(device="cuda").manual_seed(0)
+        fmt = torch.channels_last_3d if len(shape) == 5 else torch.channels_last
+        x, r = (torch.randn(shape, generator=g, device="cuda", dtype=torch.bfloat16)
+                .contiguous(memory_format=fmt) for _ in range(2))
+
+        def vectors(with_bias):
+            return (*(torch.randn(shape[1], generator=g, device="cuda") for _ in range(2)),
+                    torch.randn(shape[1], generator=g, device="cuda") if with_bias else None)
+
+        args = (x, vectors(bias), r, vectors(True) if skip else None, True, after)
+        want = conv_epilogue.conv_epilogue_plain(*args)
+        got = conv_epilogue.conv_epilogue(*args)
+        equal = bool(torch.equal(got.view(torch.int16), want.view(torch.int16)))
+        err = float((got.float() - want.float()).abs().max())
+        assert equal, (name, err)
+        del got, want
+        torch.cuda.empty_cache()
+        plain_ms = cuda_ms(lambda: conv_epilogue.conv_epilogue_plain(*args), 3, 1)
+        ms = cuda_ms(lambda: conv_epilogue.conv_epilogue(*args, inplace=True), 20)
+        moved = 3 * x.numel() * 2  # x and the residual read, y written, bf16
+        bms, by = bound(moved, 4 * x.numel())
+        variants[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                          "library_ms": None, "max_abs_err": err, "equal_bits": equal,
+                          "shape": list(shape), "conv_bias": bias, "skip_affine": skip,
+                          "residual_after_relu": after, "gb_moved": moved / 1e9,
+                          "tb_per_s": moved / ms / 1e9}
+        del x, r, args
+        torch.cuda.empty_cache()
+    row = _headline("conv_epilogue", "selfpose3d_tpu_torch/csrc/conv_epilogue.cu",
+                    "none: XLA fuses selfpose3d_tpu/models/norm.py:119-129 into its neighbours",
+                    launches, variants, "v2v_64")
+    emit({"phase": "kernels_epilogue", "row": row})
+    return row
+
+
 def _headline(name, source, replaces, launches, variants, head, **extra):
     """A kernels-line row: the numbers of the variant ``head``, the largest
     error over all variants, every variant beside them."""
@@ -2280,6 +2362,7 @@ def main() -> int:
     del sup
     torch.cuda.empty_cache()
     phase_kernels_magnitude(rows)
+    rows.append(phase_kernels_epilogue(launches_main["conv_epilogue"]))
     rows += phase_microbench()
     for row in rows:
         assert row["launches"] > 0, row["name"]

@@ -26,28 +26,46 @@ Parameters and buffers keep ``nn.BatchNorm{2,3}d``'s names and float32, so
 reference state dicts load unchanged. Convolutions hold float32 parameters
 too and cast them to the activation dtype at use, so an optimizer updates
 float32 values whatever the compute dtype.
+
+Every convolution followed by a BatchNorm runs through ``conv_bn``, with
+the ReLU and the residual sum that follow it in its block. In eval mode
+(``bn.training`` False) the BatchNorm's running affine, computed at each
+call from the live parameters and buffers, goes into one pass of
+``ops/conv_epilogue.py`` after the convolution, with the residual and the
+ReLU (and on CUDA the convolution's own bias), each operation rounded to
+the activation dtype as the separate modules round it: the same bits,
+fewer passes. A skip branch's convolution (``defer``) runs with no pass
+of its own and hands its BatchNorm's affine to the main branch's epilogue.
+Each BatchNorm so applied adds 1 to the counter ``bn_folds`` (no
+convolution weight is folded). In train mode ``conv_bn`` is the modules'
+own code.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from selfpose3d_tpu_torch.ops.conv_epilogue import Affine, epilogue
 from selfpose3d_tpu_torch.parallel import mesh
 from selfpose3d_tpu_torch.utils import spans
 
 
 class _FlaxBatchNorm:
+    def running_affine(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Eval mode's float32 (C,) scale and shift, from the running statistics."""
+        s = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
+        return s, self.bias.float() - self.running_mean.float() * s
+
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x (B, C, ...); mask optional (B,) bool, the examples whose values
         enter the batch statistics (train mode only)."""
         shape = (1, -1) + (1,) * (x.dim() - 2)
         if not self.training:
-            s = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
-            b = self.bias.float() - self.running_mean.float() * s
+            s, b = self.running_affine()
             return x * s.to(x.dtype).view(shape) + b.to(x.dtype).view(shape)
         if mesh.world() > 1:
             y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, mask, self.eps)
@@ -195,17 +213,65 @@ class Conv3d(_CastConv, nn.Conv3d):
     pass
 
 
-class ConvTranspose2d(nn.ConvTranspose2d):
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose2d(
-            x, _cast(self.weight, x.dtype), _cast(self.bias, x.dtype), self.stride,
-            self.padding, self.output_padding, self.groups, self.dilation,
-        )
+class ConvTranspose2d(_CastConv, nn.ConvTranspose2d):
+    def _conv_forward(self, x, weight, bias):
+        return F.conv_transpose2d(x, weight, bias, self.stride, self.padding,
+                                  self.output_padding, self.groups, self.dilation)
 
 
-class ConvTranspose3d(nn.ConvTranspose3d):
+class ConvTranspose3d(_CastConv, nn.ConvTranspose3d):
+    def _conv_forward(self, x, weight, bias):
+        return F.conv_transpose3d(x, weight, bias, self.stride, self.padding,
+                                  self.output_padding, self.groups, self.dilation)
+
+
+Residual = Union[torch.Tensor, Tuple[torch.Tensor, Optional[Affine]]]
+
+
+def conv_bn(conv: nn.Module, bn: nn.Module, x: torch.Tensor,
+            mask: Optional[torch.Tensor] = None, relu: bool = False,
+            residual: Optional[Residual] = None, post: Optional[torch.Tensor] = None,
+            defer: bool = False):
+    """``bn(conv(x), mask)``, then ``+ residual``, a ReLU where ``relu``, then
+    ``+ post`` (a block that sums after its ReLU); residual and post not both.
+
+    ``residual`` is a tensor or the pair a skip branch's ``conv_bn(...,
+    defer=True)`` returned, in the same mode (a network's BatchNorms share
+    theirs). ``defer`` returns that pair: in eval mode the
+    conv's output and the (scale, shift, bias) that the main branch's
+    epilogue applies to it; in train mode ``(bn(conv(x), mask), None)``.
+    Eval mode runs the epilogue (module doc) and ignores ``mask``; on CUDA
+    it runs the convolution without its bias, which cuDNN would add in a
+    pass of its own, and the epilogue adds it, rounded as that pass rounds.
+    Train mode runs the modules as they are."""
+    if residual is not None and post is not None:
+        raise ValueError("conv_bn takes a residual or a post-ReLU sum, not both")
+    r, r_affine = residual if isinstance(residual, tuple) else (residual, None)
+    if bn.training:
+        y = bn(conv(x), mask)
+        if defer:
+            return y, None
+        if r is not None:
+            y = y + r
+        if relu:
+            y = F.relu(y)
+        return y if post is None else y + post
+    if x.is_cuda and conv.bias is not None:
+        y, bias = conv._conv_forward(x, _cast(conv.weight, x.dtype), None), conv.bias
+    else:
+        y, bias = conv(x), None
+    affine = (*bn.running_affine(), bias)
+    spans.count("bn_folds")
+    if defer:
+        return y, affine
+    if post is not None:
+        return epilogue(y, affine, post, relu=relu, after_relu=True)
+    return epilogue(y, affine, r, r_affine, relu)
+
+
+class ConvBN(nn.Sequential):
+    """A convolution, its BatchNorm and an optional ReLU, run by ``conv_bn``
+    (state-dict names those of ``nn.Sequential``)."""
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose3d(
-            x, _cast(self.weight, x.dtype), _cast(self.bias, x.dtype), self.stride,
-            self.padding, self.output_padding, self.groups, self.dilation,
-        )
+        return conv_bn(self[0], self[1], x, relu=len(self) > 2)

@@ -14,8 +14,11 @@ its finest branch only, which ``final_layer`` maps to joint heatmaps.
 
 Module names are the published state-dict names; the blocks are
 ``pose_resnet``'s. Convolutions run in the compute dtype on float32
-parameters, the final layer in float32, as in ``pose_resnet.py``. Public
-layout is NHWC: (B, H, W, 3) in, (B, H/4, W/4, J) out.
+parameters, each with its BatchNorm, ReLU and sum through ``norm.conv_bn``
+(one epilogue pass in eval mode; a fuse layer's sum and ReLU go to the
+epilogue of each branch's last BatchNorm), the final layer in float32, as
+in ``pose_resnet.py``. Public layout is NHWC: (B, H, W, 3) in, (B, H/4,
+W/4, J) out.
 """
 
 from __future__ import annotations
@@ -26,8 +29,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from selfpose3d_tpu_torch.models.norm import BatchNorm2d, Conv2d
+from selfpose3d_tpu_torch.models.norm import BatchNorm2d, Conv2d, ConvBN, conv_bn
 from selfpose3d_tpu_torch.models.pose_resnet import BasicBlock, Bottleneck
+from selfpose3d_tpu_torch.ops.conv_epilogue import epilogue
 
 BLOCKS = {"BASIC": BasicBlock, "BOTTLENECK": Bottleneck}
 # COCO's left/right keypoint pairs (eyes, ears, shoulders, elbows, wrists,
@@ -46,9 +50,9 @@ W48_EXTRA = {
 }
 
 
-def _conv_bn(cin: int, cout: int, k: int, stride: int, relu: bool) -> nn.Sequential:
+def _conv_bn(cin: int, cout: int, k: int, stride: int, relu: bool) -> ConvBN:
     layers = [Conv2d(cin, cout, k, stride, k // 2, bias=False), BatchNorm2d(cout)]
-    return nn.Sequential(*layers, nn.ReLU(inplace=True)) if relu else nn.Sequential(*layers)
+    return ConvBN(*layers, nn.ReLU(inplace=True)) if relu else ConvBN(*layers)
 
 
 class HighResolutionModule(nn.Module):
@@ -85,12 +89,31 @@ class HighResolutionModule(nn.Module):
             return xs
         out = []
         for i, fuse in enumerate(self.fuse_layers):
+            js = [j for j in range(len(fuse)) if j != i]
             y = xs[i]
-            for j, f in enumerate(fuse):
-                if j != i:
-                    y = y + f(xs[j])
-            out.append(F.relu(y))
+            for j in js:
+                y = self._add_fused(fuse[j], j > i, xs[j], y, relu=j == js[-1])
+            out.append(y)
         return out
+
+    @staticmethod
+    def _add_fused(f: nn.Module, up: bool, x: torch.Tensor, acc: torch.Tensor,
+                   relu: bool) -> torch.Tensor:
+        """``acc`` plus branch ``x`` through ``f``, then the ReLU where
+        ``relu``: the last BatchNorm's epilogue takes the sum and the ReLU.
+        ``up``: a 1x1 conv and BatchNorm, then nearest upsampling, which
+        commutes with the BatchNorm's per-channel affine and so runs before
+        the epilogue; else a chain of strided 3x3 conv blocks."""
+        if up:
+            t, affine = conv_bn(f[0], f[1], x, defer=True)
+            t = f[2](t)
+            if affine is not None:
+                return epilogue(t, affine, acc, relu=relu)
+            y = acc + t
+            return F.relu(y) if relu else y
+        for step in f[:-1]:
+            x = step(x)
+        return conv_bn(f[-1][0], f[-1][1], x, relu=relu, residual=acc)
 
 
 class PoseHighResolutionNet(nn.Module):
@@ -145,8 +168,8 @@ class PoseHighResolutionNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2).to(self.dtype)  # NHWC -> NCHW view
-        x = F.relu(self.bn1(self.conv1(x)))
-        x = F.relu(self.bn2(self.conv2(x)))
+        x = conv_bn(self.conv1, self.bn1, x, relu=True)
+        x = conv_bn(self.conv2, self.bn2, x, relu=True)
         xs = [self.layer1(x)]
         for s in (2, 3, 4):
             trans = getattr(self, f"transition{s - 1}")

@@ -4,9 +4,10 @@
 Stem conv7x7/s2 + maxpool, 4 residual stages, 3 ConvTranspose2d(k=4, s=2,
 p=1) deconvs, a 1x1 final conv: 960x512 images -> 240x128 heatmaps.
 Module names are the reference's state-dict names. Convolutions run in
-the compute dtype; the final layer runs in float32, as in
-``selfpose3d_tpu/models/pose_resnet.py:207-214``. Public layout is NHWC:
-(B, H, W, 3) in, (B, H/4, W/4, J) out.
+the compute dtype, each with its BatchNorm, ReLU and residual sum through
+``norm.conv_bn`` (one epilogue pass in eval mode); the final layer runs in
+float32, as in ``selfpose3d_tpu/models/pose_resnet.py:207-214``. Public
+layout is NHWC: (B, H, W, 3) in, (B, H/4, W/4, J) out.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from selfpose3d_tpu_torch.models.norm import BatchNorm2d, Conv2d, ConvTranspose2d
+from selfpose3d_tpu_torch.models.norm import BatchNorm2d, Conv2d, ConvTranspose2d, conv_bn
 
 
 class BasicBlock(nn.Module):
@@ -34,10 +35,9 @@ class BasicBlock(nn.Module):
             )
 
     def forward(self, x):
-        r = x if self.downsample is None else self.downsample(x)
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
-        return F.relu(y + r)
+        r = x if self.downsample is None else conv_bn(*self.downsample, x, defer=True)
+        y = conv_bn(self.conv1, self.bn1, x, relu=True)
+        return conv_bn(self.conv2, self.bn2, y, relu=True, residual=r)
 
 
 class Bottleneck(nn.Module):
@@ -59,11 +59,10 @@ class Bottleneck(nn.Module):
             )
 
     def forward(self, x):
-        r = x if self.downsample is None else self.downsample(x)
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
-        return F.relu(y + r)
+        r = x if self.downsample is None else conv_bn(*self.downsample, x, defer=True)
+        y = conv_bn(self.conv1, self.bn1, x, relu=True)
+        y = conv_bn(self.conv2, self.bn2, y, relu=True)
+        return conv_bn(self.conv3, self.bn3, y, relu=True, residual=r)
 
 
 RESNET_SPEC = {
@@ -117,11 +116,13 @@ class PoseResNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2).to(self.dtype)  # NHWC -> NCHW view
-        x = F.relu(self.bn1(self.conv1(x)))
+        x = conv_bn(self.conv1, self.bn1, x, relu=True)
         x = F.max_pool2d(x, 3, 2, 1)
         for i in range(1, 5):
             x = getattr(self, f"layer{i}")(x)
-        x = self.deconv_layers(x)
+        deconvs = list(self.deconv_layers)  # (deconv, BatchNorm, ReLU) triples
+        for i in range(0, len(deconvs), 3):
+            x = conv_bn(deconvs[i], deconvs[i + 1], x, relu=True)
         out = self.final_layer(x.float())
         return out.permute(0, 2, 3, 1)  # (B, H/4, W/4, J)
 

@@ -2,11 +2,13 @@
 
 Basic3DBlock(k=7) -> Res3D(16->32) front, 2-level pool2 encoder
 (32->64->128), mid res block, ConvTranspose3d(k=2, s=2) decoder with skip
-Res3D blocks, 1x1x1 output conv in float32. Native Conv3d, ConvTranspose3d
-and max_pool3d: the JAX package's widened-tap k7 conv, matmul deconv and
-reshape max-pool are XLA formulations of the same maths. Module names are
-the reference's state-dict names. Public layout is (B, X, Y, Z, C); inside,
-the permuted view is NCDHW with channels-last strides.
+Res3D blocks, 1x1x1 output conv in float32. Each conv with its BatchNorm,
+ReLU and residual sum runs through ``norm.conv_bn`` (one epilogue pass in
+eval mode). Native Conv3d, ConvTranspose3d and max_pool3d: the JAX
+package's widened-tap k7 conv, matmul deconv and reshape max-pool are XLA
+formulations of the same maths. Module names are the reference's
+state-dict names. Public layout is (B, X, Y, Z, C); inside, the permuted
+view is NCDHW with channels-last strides.
 
 ``mask`` ((B,) bool) restricts the train-mode BatchNorm statistics to the
 selected examples without changing shapes: the counterpart of the
@@ -22,7 +24,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from selfpose3d_tpu_torch.models.norm import BatchNorm3d, Conv3d, ConvTranspose3d
+from selfpose3d_tpu_torch.models.norm import BatchNorm3d, Conv3d, ConvTranspose3d, conv_bn
 
 
 class Basic3DBlock(nn.Module):
@@ -35,8 +37,8 @@ class Basic3DBlock(nn.Module):
         )
 
     def forward(self, x, mask=None):
-        conv, bn, relu = self.block
-        return relu(bn(conv(x), mask))
+        conv, bn, _ = self.block
+        return conv_bn(conv, bn, x, mask, relu=True)
 
 
 class Res3DBlock(nn.Module):
@@ -56,11 +58,10 @@ class Res3DBlock(nn.Module):
         )
 
     def forward(self, x, mask=None):
-        conv1, bn1, relu, conv2, bn2 = self.res_branch
-        res = bn2(conv2(relu(bn1(conv1(x), mask))), mask)
-        if len(self.skip_con):
-            x = self.skip_con[1](self.skip_con[0](x), mask)
-        return F.relu(res + x)
+        conv1, bn1, _, conv2, bn2 = self.res_branch
+        skip = conv_bn(*self.skip_con, x, mask, defer=True) if len(self.skip_con) else x
+        y = conv_bn(conv1, bn1, x, mask, relu=True)
+        return conv_bn(conv2, bn2, y, mask, relu=True, residual=skip)
 
 
 class Upsample3DBlock(nn.Module):
@@ -72,9 +73,10 @@ class Upsample3DBlock(nn.Module):
             nn.ReLU(inplace=True),
         )
 
-    def forward(self, x, mask=None):
-        deconv, bn, relu = self.block
-        return relu(bn(deconv(x), mask))
+    def forward(self, x, mask=None, skip=None):
+        """relu(bn(deconv(x))), plus ``skip`` after the ReLU where given."""
+        deconv, bn, _ = self.block
+        return conv_bn(deconv, bn, x, mask, relu=True, post=skip)
 
 
 class EncoderDecoder(nn.Module):
@@ -96,8 +98,8 @@ class EncoderDecoder(nn.Module):
         skip2 = self.skip_res2(x, mask)
         x = self.encoder_res2(F.max_pool3d(x, 2), mask)
         x = self.decoder_res2(self.mid_res(x, mask), mask)
-        x = self.decoder_res1(self.decoder_upsample2(x, mask) + skip2, mask)
-        return self.decoder_upsample1(x, mask) + skip1
+        x = self.decoder_res1(self.decoder_upsample2(x, mask, skip2), mask)
+        return self.decoder_upsample1(x, mask, skip1)
 
 
 class V2VNet(nn.Module):

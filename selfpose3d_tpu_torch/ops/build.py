@@ -9,7 +9,8 @@ library's file name carries a hash of its source and flags, so a changed
 source is rebuilt and an unchanged one is reused. Builds go to
 ``build/kernels/`` at the repository root (listed in ``.gitignore``) and
 happen at first use; ``build()`` starts one compiler per source, all at
-once. Building and loading take a lock, so threads of one process that
+once, and the first use of a ``MAIN_PATH`` source builds all of them.
+Building and loading take a lock, so threads of one process that
 reach a library first at the same time (the loader's workers decoding
 their first image) build it once. A source may add flags of its own (``EXTRA_FLAGS``); they are part
 of the hash.
@@ -30,8 +31,11 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("slicewarp", "conv3", "sw_variants", "microbench_primitives")
+SOURCES = ("slicewarp", "conv3", "sw_variants", "microbench_primitives", "conv_epilogue")
 HOST_SOURCES = ("image_codec",)
+# the inference and train paths' sources: the first use of one builds all
+# of them, one compiler each in parallel
+MAIN_PATH = ("slicewarp", "conv_epilogue")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -45,10 +49,11 @@ EXTRA_FLAGS = {"sw_variants": ("-fmad=false",)}
 # one build or load at a time in this process (re-entrant: library() builds)
 _LOCK = threading.RLock()
 
-_P, _I, _S = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+_P, _I, _S, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t, ctypes.c_int64
 # C signatures: every pointer and the stream as c_void_p, sizes as c_int
-# (byte counts as c_size_t); each returns an int (a CUDA error code, or the
-# codec's code) unless RESTYPES says otherwise
+# (byte counts as c_size_t, element counts that may pass 2**31 as
+# c_int64); each returns an int (a CUDA error code, or the codec's code)
+# unless RESTYPES says otherwise
 SIGNATURES = {
     "slicewarp": {
         "sp3d_forward_scratch_floats": [_P, _I, _I, _I, _I, _I, _I],
@@ -62,6 +67,9 @@ SIGNATURES = {
         "sp3d_sw_variant": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "microbench_primitives": {"sp3d_primitive": [_P, _P, _I, _I, _I, _P]},
+    "conv_epilogue": {
+        "sp3d_conv_epilogue": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
+    },
     "image_codec": {
         "sp3d_jpeg_header": [_P, _S, _P, _P, _P],
         "sp3d_jpeg_orientation": [_P, _S],
@@ -167,7 +175,7 @@ def library(name: str) -> ctypes.CDLL:
     with _LOCK:  # lru_cache does not lock while this runs
         path = library_path(name)
         if not path.exists():
-            build([name])
+            build([name] + [n for n in MAIN_PATH if name in MAIN_PATH and n != name])
         lib = ctypes.CDLL(str(path))
         for fn, argtypes in SIGNATURES[name].items():
             f = getattr(lib, fn)

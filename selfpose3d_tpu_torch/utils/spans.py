@@ -21,13 +21,16 @@ a range and its timing events would become part of the graph.
 
 ``count(name, n)`` adds to a counter, recording or not. ``register(prefix,
 counts)`` makes a dict of counts kept elsewhere (``ops/slicewarp.py:LAUNCHES``,
-``utils/graphs.py:COUNTS``) part of the counters, under ``prefix``;
-``add(deltas)`` adds to any counter by its full name (a graph's replay
-repeats the changes its capture made). The counters ``host_syncs.<site>``
-count every place where the port makes the host wait for the device: a
-read of a device value (``int()``, ``bool()``, ``.tolist()``, ``.cpu()``,
-indexing by a ``nonzero``) or a blocking copy of host values to the
-device. They count the same on the CPU, where nothing waits.
+``ops/conv_epilogue.py:LAUNCHES``, ``utils/graphs.py:COUNTS``) part of the
+counters, under ``prefix``; ``add(deltas)`` adds to any counter by its
+full name (a graph's replay repeats the changes its capture made). The
+counters ``host_syncs.<site>`` count every place where the port makes the
+host wait for the device: a read of a device value (``int()``, ``bool()``,
+``.tolist()``, ``.cpu()``, indexing by a ``nonzero``) or a blocking copy
+of host values to the device. They count the same on the CPU, where nothing waits. The counter
+``bn_folds`` counts each eval BatchNorm applied in a convolution's
+epilogue (``models/norm.py:conv_bn``); no weight is folded, the
+BatchNorm's affine is folded into the epilogue pass.
 
 Records stay in memory, at most ``CAPACITY`` of them. ``summary()``
 synchronises once and resolves the events, and gives every counter's
@@ -53,7 +56,7 @@ import itertools
 import threading
 import time
 from collections import defaultdict
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
@@ -62,7 +65,7 @@ CAPACITY = 1 << 16
 _recording = torch.autograd._profiler_enabled
 _clock = time.perf_counter_ns
 _counts: Dict[str, int] = {}
-_sources: Dict[str, Dict[str, int]] = {"": _counts}
+_sources: List[Tuple[str, Dict[str, int]]] = [("", _counts)]
 _records: List["_Record"] = []
 _dropped = 0
 _since: Dict[str, int] = {}  # the counters at the last reset()
@@ -187,7 +190,7 @@ def add(deltas: Dict[str, int]) -> None:
     """Add each ``deltas[name]`` to the counter ``name``, a registered one
     (``prefix + key``) too."""
     for name, n in deltas.items():
-        for prefix, d in _sources.items():
+        for prefix, d in _sources:
             if prefix and name.startswith(prefix) and name[len(prefix):] in d:
                 d[name[len(prefix):]] += n
                 break
@@ -208,13 +211,14 @@ def muted():
 
 def register(prefix: str, counts: Dict[str, int]) -> None:
     """Read ``counts`` (kept up to date by its owner) as counters named
-    ``prefix + key``."""
-    _sources[prefix] = counts
+    ``prefix + key``; several dicts may share a prefix."""
+    if all(d is not counts for _, d in _sources):
+        _sources.append((prefix, counts))
 
 
 def counters() -> Dict[str, int]:
     """Every counter's value now."""
-    return {p + k: v for p, d in _sources.items() for k, v in d.items()}
+    return {p + k: v for p, d in _sources for k, v in d.items()}
 
 
 def reset() -> None:

@@ -1058,3 +1058,147 @@ def test_topdown_graphed_equals_eager_and_syncs_once(cuda, monkeypatch):
     cpu.load_state_dict(P)
     kp = inference.topdown_keypoints(cpu, frames, boxes, frame_of)
     np.testing.assert_allclose(want[0].numpy()[..., 2], kp.numpy()[..., 2], rtol=1e-3, atol=1e-3)
+
+
+# ------------------------------- the convolutions' BatchNorm epilogue kernel
+
+# the main path's activations at their cells' batches: V2V's 64^3 x 32 on
+# 320 cubes, ResNet-50's layer-1 output on 160 views of 960x512, HRNet-W48's
+# 48 channels at 96x72 on 320 crops; bf16, channels-last
+EPILOGUE_SHAPES = {"v2v_64": (320, 32, 64, 64, 64), "resnet50_layer1": (160, 256, 128, 240),
+                   "hrnet_w48": (320, 48, 96, 72)}
+# mode: (conv bias, residual, the residual's own bias and affine, relu,
+# residual after the ReLU)
+EPILOGUE_MODES = {"affine": (False, False, False, False, False),
+                  "bias_relu": (True, False, False, True, False),
+                  "residual_relu": (False, True, False, True, False),
+                  "bias_skip_affine_relu": (True, True, True, True, False),
+                  "relu_then_residual": (False, True, False, True, True)}
+
+
+def _epilogue_inputs(shape, dtype, mode, device, seed=0):
+    """-> (x, affine, residual, res_affine), relu, after_relu."""
+    bias, residual, skip, relu, after = EPILOGUE_MODES[mode]
+    g = torch.Generator(device=device).manual_seed(seed)
+    fmt = torch.channels_last_3d if len(shape) == 5 else torch.channels_last
+
+    def act():
+        return torch.randn(shape, generator=g, device=device, dtype=dtype).contiguous(
+            memory_format=fmt)
+
+    def affine(with_bias):
+        return tuple(torch.randn(shape[1], generator=g, device=device) for _ in range(2)) + (
+            torch.randn(shape[1], generator=g, device=device) if with_bias else None,)
+
+    args = (act(), affine(bias), act() if residual else None, affine(True) if skip else None)
+    return args, relu, after
+
+
+@pytest.mark.parametrize("mode", list(EPILOGUE_MODES))
+@pytest.mark.parametrize("shape", list(EPILOGUE_SHAPES))
+def test_conv_epilogue_kernel_equals_plain_bit_for_bit(cuda, shape, mode):
+    """Both round each multiply and add to bf16 in one order, as torch's
+    bf16 ops round them: equal bits, in place and out of place."""
+    from selfpose3d_tpu_torch.ops import conv_epilogue as ce
+
+    args, relu, after = _epilogue_inputs(EPILOGUE_SHAPES[shape], torch.bfloat16, mode, cuda)
+    want = ce.conv_epilogue_plain(*args, relu, after)
+    before = ce.LAUNCHES["conv_epilogue"]
+    got = ce.conv_epilogue(*args, relu, after)
+    assert torch.equal(_bits(got), _bits(want)) and got.stride() == args[0].stride()
+    del got
+    assert ce.conv_epilogue(*args, relu, after, inplace=True) is args[0]
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(args[0]), _bits(want))
+    assert ce.LAUNCHES["conv_epilogue"] == before + 2
+    del args, want
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("shape", [(3, 12, 5, 7), (2, 4, 3, 5, 6), (1, 2048, 1, 1)])
+def test_conv_epilogue_kernel_float32_and_odd_shapes(cuda, shape):
+    """float32 (4 lanes), ragged vector counts, one spatial element."""
+    from selfpose3d_tpu_torch.ops import conv_epilogue as ce
+
+    for mode in EPILOGUE_MODES:
+        args, relu, after = _epilogue_inputs(shape, torch.float32, mode, cuda, seed=3)
+        want = ce.conv_epilogue_plain(*args, relu, after)
+        assert torch.equal(_bits(ce.conv_epilogue(*args, relu, after)), _bits(want)), mode
+
+
+def test_conv_epilogue_raises_on_what_the_kernel_does_not_take(cuda):
+    from selfpose3d_tpu_torch.ops import conv_epilogue as ce
+
+    (x, aff, r, _), _, _ = _epilogue_inputs((2, 16, 4, 6), torch.bfloat16, "residual_relu", cuda)
+    before = dict(ce.LAUNCHES)
+    with pytest.raises(ValueError, match="channels-last"):
+        ce.conv_epilogue(x.contiguous(), aff)
+    (x12, a12, _, _), _, _ = _epilogue_inputs((2, 12, 4, 6), torch.bfloat16, "affine", cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ce.conv_epilogue(x12, a12)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        ce.conv_epilogue(x.half(), aff)
+    with pytest.raises(ValueError, match="residual differs"):
+        ce.conv_epilogue(x, aff, r.contiguous())
+    with pytest.raises(ValueError, match="not float32"):
+        ce.conv_epilogue(x, (aff[0], aff[1].bfloat16(), None))
+    with pytest.raises(ValueError, match="needs a residual"):
+        ce.conv_epilogue(x, aff, None, aff)
+    with pytest.raises(ValueError, match="several devices"):
+        ce.conv_epilogue(x, tuple(v.cpu() for v in aff[:2]) + (None,))
+    buf = torch.zeros(x.numel() + 4, dtype=x.dtype, device=cuda)
+    odd = buf[4:].view(2, 4, 6, 16).permute(0, 3, 1, 2)  # channels-last, 8 bytes off
+    with pytest.raises(ValueError, match="aligned"):
+        ce.conv_epilogue(odd, aff)
+    assert ce.LAUNCHES == before
+
+
+def test_eval_blocks_on_the_card_launch_the_epilogue(cuda, monkeypatch):
+    """ResNet-18 and V2V in eval mode on the card: in bf16 one epilogue launch
+    a BatchNorm that is not a skip branch's (each launch takes its input
+    channels-last as the convolution left it, or raises); in float32 (TF32
+    off) the CPU's output within 1e-4 of the largest entry; and the bf16
+    output equals the modules' own code (the epilogue undone) bit for bit
+    where cuDNN runs deterministic algorithms."""
+    from selfpose3d_tpu_torch.models import pose_resnet, v2v_net
+    from selfpose3d_tpu_torch.models.norm import BatchNorm2d, BatchNorm3d
+    from selfpose3d_tpu_torch.models.pose_resnet import PoseResNet
+    from selfpose3d_tpu_torch.models.v2v_net import V2VNet
+    from selfpose3d_tpu_torch.ops import conv_epilogue as ce
+    from selfpose3d_tpu_torch.utils import spans
+
+    def modules_code(conv, bn, x, mask=None, relu=False, residual=None, post=None, defer=False):
+        y = bn(conv(x), mask)
+        if defer:
+            return y, None
+        if residual is not None:
+            y = y + (residual[0] if isinstance(residual, tuple) else residual)
+        y = torch.relu(y) if relu else y
+        return y if post is None else y + post
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    nets = {"resnet18": (lambda dt: PoseResNet(18, 8, dtype=dt), (2, 64, 96, 3)),
+            "v2v": (lambda dt: V2VNet(8, 8, dtype=dt), (2, 16, 16, 16, 8))}
+    for name, (make, shape) in nets.items():
+        x = torch.rand(shape, generator=torch.Generator().manual_seed(1))
+        for dtype in (torch.bfloat16, torch.float32):
+            torch.manual_seed(0)
+            net = make(dtype).eval()
+            want = net(x).detach() if dtype == torch.float32 else None
+            net.cuda()
+            before, launched = spans.counters().get("bn_folds", 0), ce.LAUNCHES["conv_epilogue"]
+            with torch.no_grad():
+                got = net(x.cuda()).float().cpu()
+            folds = spans.counters()["bn_folds"] - before
+            bns = sum(isinstance(m, (BatchNorm2d, BatchNorm3d)) for m in net.modules())
+            assert folds == bns and ce.LAUNCHES["conv_epilogue"] - launched == bns - 3, name
+            assert bool(torch.isfinite(got).all()), name
+            if want is not None:
+                err = float((got - want).abs().max())
+                assert err <= 1e-4 * float(want.abs().max()), (name, err)
+            else:
+                with monkeypatch.context() as m, torch.no_grad():
+                    m.setattr(pose_resnet, "conv_bn", modules_code)
+                    m.setattr(v2v_net, "conv_bn", modules_code)
+                    assert torch.equal(net(x.cuda()).float().cpu(), got), name
